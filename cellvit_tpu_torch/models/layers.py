@@ -1,0 +1,125 @@
+"""Shared building blocks (port of `cellvit_tpu/models/layers.py`).
+
+Modules work on NCHW tensors, PyTorch's convention; the models convert at
+their public entry points, which keep the JAX package's NHWC layout.
+Sub-module names follow the reference torch modules (`Conv2DBlock`,
+`Deconv2DBlock`: `block.0`, `block.1`, …), so reference state dicts load
+with `load_state_dict`.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class ConvBNRelu(nn.Module):
+    """Conv(k, SAME) → BatchNorm (eps 1e-5) → ReLU (→ dropout); reference
+    `Conv2DBlock`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 dropout: float = 0.0) -> None:
+        super().__init__()
+        self.block = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2),
+            nn.BatchNorm2d(out_channels, eps=1e-5),
+            nn.ReLU(),
+            nn.Dropout(dropout),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class ConvTranspose2x2(nn.Module):
+    """2×2-kernel, stride-2 transposed convolution:
+
+        out[b, f, 2h+p, 2w+q] = Σ_c x[b, c, h, w] · W[c, f, p, q] + bias[f]
+
+    with the torch `ConvTranspose2d(k=2, s=2)` weight layout (C_in, C_out, 2, 2)."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, 2, 2))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        nn.init.trunc_normal_(self.weight, std=0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight, self.bias, stride=2)
+
+
+class DeconvBlock(nn.Module):
+    """ConvTranspose2x2 → Conv(k) → BN → ReLU (→ dropout); reference
+    `Deconv2DBlock`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 dropout: float = 0.0) -> None:
+        super().__init__()
+        self.block = nn.Sequential(
+            ConvTranspose2x2(in_channels, out_channels),
+            nn.Conv2d(out_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2),
+            nn.BatchNorm2d(out_channels, eps=1e-5),
+            nn.ReLU(),
+            nn.Dropout(dropout),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+class PatchEmbed(nn.Module):
+    """16×16/s16 patch projection: (B, C, H, W) → (B, H/16, W/16, E)."""
+
+    def __init__(self, embed_dim: int, patch_size: int = 16, in_chans: int = 3) -> None:
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x).permute(0, 2, 3, 1)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP with exact-erf GELU."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, hidden_dim)
+        self.act = nn.GELU()
+        self.fc2 = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+@lru_cache(maxsize=32)
+def _resize_matrix_np(n_in: int, n_out: int, scale: float) -> np.ndarray:
+    a = -0.75
+
+    def cubic(t: np.ndarray) -> np.ndarray:
+        t = np.abs(t)
+        return np.where(
+            t <= 1.0,
+            (a + 2.0) * t**3 - (a + 3.0) * t**2 + 1.0,
+            np.where(t < 2.0, a * t**3 - 5.0 * a * t**2 + 8.0 * a * t - 4.0 * a, 0.0),
+        )
+
+    mat = np.zeros((n_out, n_in), dtype=np.float64)
+    for i in range(n_out):
+        src = (i + 0.5) / scale - 0.5
+        idx = np.arange(int(np.floor(src)) - 1, int(np.floor(src)) + 3)
+        w = cubic(src - idx)
+        for j, wj in zip(np.clip(idx, 0, n_in - 1), w):
+            mat[i, j] += wj
+    return mat.astype(np.float32)
+
+
+def resize_matrix_1d(n_in: int, n_out: int, scale: float) -> torch.Tensor:
+    """Dense (n_out, n_in) bicubic resize operator with torch `F.interpolate`
+    semantics for an explicit `scale_factor`: src = (dst + 0.5) / scale − 0.5
+    (align_corners=False), cubic convolution with a = −0.75, source indices
+    clamped. Taking `scale` explicitly keeps callers' scale fudges exact."""
+    return torch.from_numpy(_resize_matrix_np(n_in, n_out, float(scale)))

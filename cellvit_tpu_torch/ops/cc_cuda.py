@@ -1,0 +1,193 @@
+"""Fixed-pass connected components, label compaction and border flood
+(port of `cellvit_tpu/ops/cc_pallas.py`: `connected_components_pallas`,
+`propagate_min_pallas` / `compact_root_labels_pallas`, `flood_pallas` /
+`fill_holes_pallas`).
+
+Each op runs `n_outer` passes of four directional segmented scans — axis 0
+forward, axis 0 reverse, axis 1 forward, axis 1 reverse, each followed by a
+re-mask — exactly the Pallas kernels' schedule, so on shapes that need more
+turns than `n_outer` the result equals the Pallas kernel's, not a converged
+labeler's. On a CUDA tensor the kernels of `csrc/seg_scan.cu` run; on a CPU
+tensor the plain versions below, which scan by the same doubling steps as
+the Pallas kernels (`_segmin_direction`, `_segor_direction`). Every exact
+segmented scan gives the same bits, so the two agree exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from cellvit_tpu_torch import _build
+
+INT_MAX = torch.iinfo(torch.int32).max
+# the axis-0 kernel holds a 32-column strip of the whole image height
+# (5 bytes a pixel) in one block's 227 KB of shared memory
+MAX_HEIGHT = 1400
+
+Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def segmented_scan(v: torch.Tensor, barrier: torch.Tensor, dim: int, reverse: bool,
+                   op: Op, ident: int) -> torch.Tensor:
+    """Inclusive segmented scan of `v` along `dim`; barrier pixels reset the
+    running value and keep their own. Doubling steps as in the Pallas kernel:
+    v ← b ? v : op(v, shift(v, k)); b ← b | shift(b, k)."""
+    if reverse:
+        v, barrier = v.flip(dim), barrier.flip(dim)
+    n = v.shape[dim]
+    b = barrier
+    shift = 1
+    while shift < n:
+        fill_shape = list(v.shape)
+        fill_shape[dim] = shift
+        t = torch.cat([v.new_full(fill_shape, ident), v.narrow(dim, 0, n - shift)], dim)
+        tb = torch.cat([b.new_ones(fill_shape), b.narrow(dim, 0, n - shift)], dim)
+        v = torch.where(b, v, op(v, t))
+        b = b | tb
+        shift *= 2
+    return v.flip(dim) if reverse else v
+
+
+def _passes(v: torch.Tensor, open_: torch.Tensor, n_outer: int, op: Op, ident: int) -> torch.Tensor:
+    closed = ~open_
+    for _ in range(n_outer):
+        for dim in (1, 2):
+            for reverse in (False, True):
+                v = segmented_scan(v, closed, dim, reverse, op, ident)
+                v = torch.where(open_, v, ident)
+    return v
+
+
+def raster_ids(h: int, w: int, device) -> torch.Tensor:
+    """(1, H, W) int32 linear pixel indices."""
+    return torch.arange(h * w, dtype=torch.int32, device=device).reshape(1, h, w)
+
+
+def connected_components_plain(fg: torch.Tensor, n_outer: int = 3) -> torch.Tensor:
+    """(B, H, W) bool → (B, H, W) int32 root labels (component-min linear
+    index + 1, background 0) after `n_outer` passes."""
+    lab = torch.where(fg, raster_ids(*fg.shape[1:], fg.device), INT_MAX)
+    lab = _passes(lab, fg, n_outer, torch.minimum, INT_MAX)
+    return torch.where(fg, lab + 1, 0).to(torch.int32)
+
+
+def propagate_min_plain(seed: torch.Tensor, fg: torch.Tensor, n_outer: int = 3) -> torch.Tensor:
+    """Min-propagate int32 `seed` over the 4-connected components of `fg`
+    (INT_MAX on background and where no finite seed reaches)."""
+    v = torch.where(fg, seed.to(torch.int32), INT_MAX)
+    return _passes(v, fg, n_outer, torch.minimum, INT_MAX)
+
+
+def flood_plain(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
+    """Grow bool `seed` through bool `open_` pixels (4-connectivity)."""
+    v = (seed & open_).to(torch.int32)
+    return _passes(v, open_, n_outer, torch.bitwise_or, 0) != 0
+
+
+# ----------------------------------------------------------- kernel wrappers
+
+
+def _check_mask(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dim() != 3:
+        raise ValueError(f"{name} must be (B, H, W); got {tuple(t.shape)}")
+    if t.shape[1] > MAX_HEIGHT:
+        raise ValueError(f"{name}: height {t.shape[1]} exceeds the kernel's {MAX_HEIGHT}")
+    return t.to(torch.bool).contiguous()
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def connected_components_cuda(fg: torch.Tensor, n_outer: int = 3) -> torch.Tensor:
+    """Root labels by `n_outer` scan passes (kernel B2 on CUDA)."""
+    if _device_kind(fg) == "cpu":
+        return connected_components_plain(fg, n_outer)
+    fg = _check_mask("fg", fg)
+    b, h, w = fg.shape
+    lab = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
+    fn = _build.bind("seg_scan.cu", "cc_labels", "ppiiii")
+    _build.LAUNCHES["connected_components"] += 1
+    _build.check(fn(fg.data_ptr(), lab.data_ptr(), b, h, w, n_outer, _build.stream_of(fg)),
+                 "cc_labels")
+    return lab
+
+
+def propagate_min_cuda(seed: torch.Tensor, fg: torch.Tensor, n_outer: int = 3) -> torch.Tensor:
+    """Per-component min of `seed` by `n_outer` scan passes (kernel B4 on CUDA)."""
+    if _device_kind(seed) == "cpu":
+        return propagate_min_plain(seed, fg, n_outer)
+    fg = _check_mask("fg", fg)
+    seed = seed.to(torch.int32).contiguous()
+    if seed.shape != fg.shape:
+        raise ValueError(f"seed {tuple(seed.shape)} and fg {tuple(fg.shape)} differ")
+    b, h, w = fg.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
+    fn = _build.bind("seg_scan.cu", "propagate_min", "pppiiii")
+    _build.LAUNCHES["propagate_min"] += 1
+    _build.check(
+        fn(seed.data_ptr(), fg.data_ptr(), out.data_ptr(), b, h, w, n_outer,
+           _build.stream_of(fg)),
+        "propagate_min",
+    )
+    return out
+
+
+def flood_cuda(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
+    """Reachability of `seed` through `open_` by `n_outer` scan passes
+    (kernel B3 on CUDA)."""
+    if _device_kind(seed) == "cpu":
+        return flood_plain(seed, open_, n_outer)
+    seed, open_ = _check_mask("seed", seed), _check_mask("open_", open_)
+    if seed.shape != open_.shape:
+        raise ValueError(f"seed {tuple(seed.shape)} and open {tuple(open_.shape)} differ")
+    b, h, w = seed.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=seed.device)
+    fn = _build.bind("seg_scan.cu", "flood", "pppiiii")
+    _build.LAUNCHES["flood"] += 1
+    _build.check(
+        fn(seed.data_ptr(), open_.data_ptr(), out.data_ptr(), b, h, w, n_outer,
+           _build.stream_of(seed)),
+        "flood",
+    )
+    return out != 0
+
+
+def root_rank_seed(lab: torch.Tensor) -> torch.Tensor:
+    """Each root pixel's 1-based rank in raster order of roots (a cumsum),
+    INT_MAX elsewhere: the seed that `compact_root_labels_cuda` propagates."""
+    b, h, w = lab.shape
+    is_root = (lab > 0) & (lab - 1 == raster_ids(h, w, lab.device))
+    rank = torch.cumsum(is_root.reshape(b, h * w), dim=1, dtype=torch.int32).reshape(b, h, w)
+    return torch.where(is_root, rank, INT_MAX)
+
+
+def compact_root_labels_cuda(lab: torch.Tensor, n_outer: int = 3) -> torch.Tensor:
+    """Root labels → consecutive 1..N in raster order of roots (scipy
+    numbering): each root's rank is min-propagated over its component
+    (`compact_root_labels_pallas`)."""
+    fg = lab > 0
+    return torch.where(fg, propagate_min_cuda(root_rank_seed(lab), fg, n_outer), 0)
+
+
+def border_seed(mask: torch.Tensor) -> torch.Tensor:
+    """Background pixels on the image border (the flood's seed)."""
+    h, w = mask.shape[-2:]
+    border = torch.zeros((h, w), dtype=torch.bool, device=mask.device)
+    border[0, :] = border[-1, :] = True
+    border[:, 0] = border[:, -1] = True
+    return border & ~mask
+
+
+def fill_holes_cuda(mask: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
+    """(B, H, W) binary_fill_holes via a border flood of the background."""
+    bg = ~mask
+    reach = flood_cuda(border_seed(mask), bg, n_outer)
+    return mask | (bg & ~reach)

@@ -1,0 +1,85 @@
+"""Synthetic workload of the device stage: H&E-like blob tiles (the JAX
+package's `bench.py:119-128`) and probe weights that make a randomly
+initialised CellViT's nucleus and HV maps follow those tiles, so that the
+postprocessing has real nuclei to segment."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def blob_tiles(batch: int = 8, tile: int = 1024, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """600 dark discs of radius 4-12 per `tile`² tile on a 0.75 background.
+    Returns ((batch, tile, tile, 3) fp32 images in [0, 1], disc masks)."""
+    rng = np.random.default_rng(seed)
+    imgs = np.full((batch, tile, tile, 3), 0.75, np.float32)
+    masks = np.zeros((batch, tile, tile), bool)
+    for b in range(batch):
+        for _ in range(600):
+            cy, cx = rng.integers(10, tile - 10, 2)
+            r = int(rng.integers(4, 12))
+            y0, x0 = max(cy - r, 0), max(cx - r, 0)
+            y1, x1 = min(cy + r + 1, tile), min(cx + r + 1, tile)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            m = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            imgs[b, y0:y1, x0:x1][m] = rng.uniform(0.1, 0.4)
+            masks[b, y0:y1, x0:x1] |= m
+    return imgs, masks
+
+
+@torch.no_grad()
+def set_probe_weights(model) -> None:
+    """Overwrite the image skip path (`decoder0`) and the last stage of the
+    nucleus and HV towers so that the forward maps follow the tile. With
+    darkness d = ReLU(−red) after normalisation, the skip path carries the
+    saturated nucleus mask m = ReLU(20·d) − ReLU(20·d − 1); the nucleus logit
+    is 10·m − 5, and the HV maps are the signed x / y Sobel gradients of the
+    box-blurred mask (negative on a nucleus's left/top edge, positive on its
+    right/bottom edge, as HoVer-Net's targets). Every other weight keeps its
+    random value: the towers' last stage reads only the image skip, and the
+    random encoder feeds the tokens, the tissue logits and the type map."""
+
+    def conv_bn(block, weight, bias=None):
+        conv, bn = block.block[0], block.block[1]
+        conv.weight.copy_(weight)
+        conv.bias.zero_()
+        bn.weight.fill_(1.0)
+        bn.bias.zero_()
+        if bias is not None:
+            bn.bias.copy_(bias)
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - bn.eps)
+
+    w = torch.zeros(32, 3, 3, 3)
+    w[0, 0, 1, 1] = -1.0
+    conv_bn(model.decoder0[0], w)
+    w, b = torch.zeros(64, 32, 3, 3), torch.zeros(64)
+    w[0, 0, 1, 1] = w[1, 0, 1, 1] = 20.0
+    b[1] = -1.0
+    conv_bn(model.decoder0[1], w, b)
+    nb = model.nuclei_binary_map_decoder.decoder0_header
+    w = torch.zeros(64, 128, 3, 3)
+    w[0, 0, 1, 1], w[0, 1, 1, 1] = 1.0, -1.0
+    conv_bn(nb[0], w)
+    w = torch.zeros(64, 64, 3, 3)
+    w[0, 0, 1, 1] = 1.0
+    conv_bn(nb[1], w)
+    nb[2].weight.zero_()
+    nb[2].weight[1, 0] = 10.0
+    nb[2].bias.zero_()
+    nb[2].bias[1] = -5.0
+    hv = model.hv_map_decoder.decoder0_header
+    w = torch.zeros(64, 128, 3, 3)
+    w[0, 0], w[0, 1] = 1.0 / 9.0, -1.0 / 9.0
+    conv_bn(hv[0], w)
+    gx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]) / 8.0
+    w = torch.zeros(64, 64, 3, 3)
+    w[0, 0], w[1, 0], w[2, 0], w[3, 0] = gx, -gx, gx.T, -gx.T
+    conv_bn(hv[1], w)
+    hv[2].weight.zero_()
+    hv[2].weight[0, 0], hv[2].weight[0, 1] = -1.0, 1.0
+    hv[2].weight[1, 2], hv[2].weight[1, 3] = -1.0, 1.0
+    hv[2].bias.zero_()

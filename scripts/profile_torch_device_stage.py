@@ -1,0 +1,67 @@
+"""Profile one batch of the PyTorch/CUDA port's device stage on the GPU.
+
+    python3 scripts/profile_torch_device_stage.py
+
+Runs the workload of `chip_smoke.py`'s main path: a full-width CellViT-256
+with the probe weights of `cellvit_tpu_torch/synthetic.py`, bf16, on its
+8 × 1024² blob tiles. After one warm-up batch,
+it profiles one batch of `CellSegmentationInference._device_outputs` with
+`torch.profiler` (CPU and CUDA activities). It prints the batch's wall
+time, the device time summed over kernels and its share of the wall time,
+and the ops that take the most device time with their kernel counts.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference  # noqa: E402
+from cellvit_tpu_torch.models.cellvit import CellViT256  # noqa: E402
+from cellvit_tpu_torch.synthetic import blob_tiles, set_probe_weights  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(f"card: {card}")
+    imgs, _ = blob_tiles(8, 1024, 0)
+    torch.manual_seed(0)
+    model = CellViT256(num_nuclei_classes=6, num_tissue_classes=19)
+    set_probe_weights(model)
+    infer = CellSegmentationInference(
+        model=model, run_conf={"data": {"num_nuclei_classes": 6, "num_tissue_classes": 19}},
+        mixed_precision=True, device="cuda",
+    )
+    infer._device_outputs(imgs, 40)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        infer._device_outputs(imgs, 40)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # kernels and copies only: an aten op's self device time repeats its kernels'
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"batch wall {wall_ms:.2f} ms; device time {device_ms:.2f} ms "
+          f"(busy share {device_ms / wall_ms:.4f}); stage ms {infer.last_stage_ms}")
+    print(f"watershed passes per tile {infer.last_watershed_passes.tolist()}")
+    print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=48))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,134 @@
+"""Port's device stage of WSI inference against the JAX composition of the
+same stage, the package's independence from JAX, and its device rules."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cellvit_tpu.models import CellViT as JaxCellViT
+from cellvit_tpu.models.checkpoint_io import convert_state_dict
+from cellvit_tpu.models.fused import fused_forward_maps
+from cellvit_tpu.ops.hv_postproc import instance_map_batch_maps as jax_instance_maps
+from cellvit_tpu.ops.instance_stats import instance_stats_batch as jax_stats
+from cellvit_tpu.ops.instance_stats import relabel_consecutive as jax_relabel
+from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference
+from cellvit_tpu_torch.models.cellvit import CellViT
+from cellvit_tpu_torch.synthetic import set_probe_weights
+
+# one intra-op thread each: the suite runs as parallel pytest workers
+torch.set_num_threads(1)
+
+PACKAGE = Path(__file__).resolve().parent.parent / "cellvit_tpu_torch"
+KW = dict(num_nuclei_classes=6, num_tissue_classes=19, embed_dim=64, depth=4,
+          num_heads=2, extract_layers=(1, 2, 3, 4))
+RUN_CONF = {"data": {"num_nuclei_classes": 6, "num_tissue_classes": 19},
+            "transformations": {"normalize": {"mean": [0.6, 0.5, 0.4],
+                                              "std": [0.3, 0.25, 0.2]}}}
+
+
+def _tiles(n=2, size=128):
+    """Light tiles with dark discs (bench.py's synthetic H&E look)."""
+    rng = np.random.default_rng(7)
+    imgs = np.full((n, size, size, 3), 0.75, np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for b in range(n):
+        for _ in range(20):
+            cy, cx = rng.integers(8, size - 8, 2)
+            r = int(rng.integers(4, 9))
+            imgs[b][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.uniform(0.1, 0.4)
+    return imgs
+
+
+def _probe_model():
+    """The port's tiny CellViT with seeded random weights and the probe
+    weights of `synthetic.py` (nucleus and HV maps that follow the tile), and
+    the JAX model carrying the same weights."""
+    torch.manual_seed(0)
+    model = CellViT(**KW)
+    set_probe_weights(model)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    return model, JaxCellViT(encoder_type="histo", **KW), convert_state_dict(sd, False)
+
+
+def test_device_outputs_match_jax_composition():
+    model, jm, variables = _probe_model()
+    imgs = _tiles()
+    infer = CellSegmentationInference(model=model, run_conf=RUN_CONF,
+                                      max_instances_per_tile=256, device="cpu")
+    inst, stats, tokens = infer._device_outputs(imgs, 40)
+
+    mean = np.asarray([0.6, 0.5, 0.4], np.float32)
+    std = np.asarray([0.3, 0.25, 0.2], np.float32)
+    x = jnp.asarray((imgs - mean) / std)
+    out = fused_forward_maps(jm, variables, x, retrieve_tokens=True)
+    want_inst = jax_instance_maps(out["np_prob"], out["hv0"], out["hv1"], use_pallas=False)
+    type_map = jnp.argmax(out["type_map_cmajor"], 1).astype(jnp.int32)
+    want_inst = jax.vmap(lambda m: jax_relabel(m, 128 * 128 // 2 + 2))(want_inst)
+    want = jax_stats(want_inst, type_map, out["np_prob"], max_instances=256, num_classes=6)
+
+    np.testing.assert_array_equal(inst, np.asarray(want_inst))
+    np.testing.assert_allclose(tokens, np.asarray(out["tokens"]), atol=2e-4)
+    for key in ("valid", "area", "bbox", "type"):
+        np.testing.assert_array_equal(stats[key], np.asarray(want[key]), err_msg=key)
+    for key in ("centroid", "type_prob", "mean_prob"):
+        np.testing.assert_allclose(stats[key], np.asarray(want[key]), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+    assert inst.shape == (2, 128, 128) and tokens.shape == (2, 8, 8, 64)
+    assert (stats["valid"].sum(1) >= 5).all()  # the maps hold real nuclei
+    assert infer.last_watershed_passes.shape == (2,)
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, cellvit_tpu_torch\n"
+        "for m in pkgutil.walk_packages(cellvit_tpu_torch.__path__, 'cellvit_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'cellvit_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('cellvit_tpu_torch')]))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+def test_package_sources_name_no_jax():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|cellvit_tpu)(\.|\s|$)", re.MULTILINE)
+    offenders = [p.name for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())]
+    assert offenders == []
+    assert pattern.search("from cellvit_tpu.ops import cc")
+    assert not pattern.search("from cellvit_tpu_torch.ops import cc")
+
+
+def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = CellViT(**KW)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CellSegmentationInference(model=model, run_conf=RUN_CONF)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CellSegmentationInference(model=model, run_conf=RUN_CONF, device="cuda")
+    infer = CellSegmentationInference(model=model, run_conf=RUN_CONF, device="cpu")
+    assert infer.device.type == "cpu"
+    assert np.allclose(infer.mean, [0.6, 0.5, 0.4])
+
+
+def test_check_wsi():
+    infer = CellSegmentationInference(model=CellViT(**KW), run_conf=RUN_CONF, device="cpu")
+    meta = {"magnification": 40, "patch_size": 1024, "patch_overlap": 64}
+    infer.check_wsi(SimpleNamespace(metadata=meta))
+    infer.check_wsi({"magnification": None, "base_magnification": 40, "downsampling": 2,
+                     "patch_size": 1024, "patch_overlap": 64}, magnification=20)
+    with pytest.raises(RuntimeError, match="magnification"):
+        infer.check_wsi(meta, magnification=20)
+    with pytest.raises(RuntimeError, match="overlap"):
+        infer.check_wsi(dict(meta, patch_overlap=32))
