@@ -3,7 +3,8 @@
 Each `csrc/*.cu` file exposes a plain C interface (pointers and the CUDA
 stream as `void*`, sizes as `int`, a `cudaError_t` as the return value), so
 it compiles in seconds without PyTorch's headers. A source is built at first
-use into `build/`, under a name keyed by a hash of its text and the flags,
+use into `build/`, under a name keyed by a hash of its text, the shared
+`csrc/*.cuh` headers and the flags,
 and loaded with `ctypes`. `build_all()` starts one `nvcc` per source, all at
 once, and is what `chip_smoke.py` calls to time the build.
 """
@@ -21,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("flash_attn.cu", "seg_scan.cu")
+SOURCES = ("flash_attn.cu", "seg_scan.cu", "win_qkv_attn.cu", "relpos_attn.cu", "win_attn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +37,9 @@ LAUNCHES: Dict[str, int] = {
     "connected_components": 0,
     "flood": 0,
     "propagate_min": 0,
+    "window_qkv_attention": 0,
+    "flash_attention_relpos": 0,
+    "window_attention": 0,
 }
 
 
@@ -51,9 +55,10 @@ def _nvcc() -> str:
 
 
 def lib_path(src: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """The library of one source, named by a hash of its text, the shared
+    headers' text and the flags."""
+    text = (CSRC / src).read_bytes() + b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
 
 

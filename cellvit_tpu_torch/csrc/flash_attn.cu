@@ -23,32 +23,19 @@
 // N are zero-filled and masked to -inf, so a ragged N (4097) needs no padding
 // in memory. Head dim D = 64 only; the wrapper raises on anything else.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace mma_bf16;
 
 constexpr int D = 64;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int LD = D + 8;   // padded smem row (bf16 elements): conflict-free fragment loads
 constexpr int THREADS = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -119,7 +106,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int kc = 0; kc < D / 16; ++kc) {
         uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Ks[(j * 8 + g) * LD + kc * 16 + 2 * t]);
         uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Ks[(j * 8 + g) * LD + kc * 16 + 8 + 2 * t]);
-        mma_bf16(s[j], qa[kc], b0, b1);
+        mma(s[j], qa[kc], b0, b1);
       }
     }
     // scale into base-2 space, mask keys >= N, row max over the quad
@@ -168,15 +155,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = pack(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int jd = 0; jd < D / 8; ++jd) {
         uint32_t b0 = *reinterpret_cast<const uint32_t*>(&Vt[(jd * 8 + g) * LD + kk * 16 + 2 * t]);
         uint32_t b1 = *reinterpret_cast<const uint32_t*>(&Vt[(jd * 8 + g) * LD + kk * 16 + 8 + 2 * t]);
-        mma_bf16(acc[jd], pa, b0, b1);
+        mma(acc[jd], pa, b0, b1);
       }
     }
   }
@@ -194,9 +181,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int jd = 0; jd < D / 8; ++jd) {
     int c = jd * 8 + 2 * t;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * H * D + c) = pack_bf16(acc[jd][0] * inv0, acc[jd][1] * inv0);
+      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * H * D + c) = pack(acc[jd][0] * inv0, acc[jd][1] * inv0);
     if (r1 < N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * H * D + c) = pack_bf16(acc[jd][2] * inv1, acc[jd][3] * inv1);
+      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * H * D + c) = pack(acc[jd][2] * inv1, acc[jd][3] * inv1);
   }
   if (t == 0) {
     const float ln2 = 0.6931471805599453f;

@@ -1,11 +1,12 @@
-"""CellViT with the ViT-256 encoder and HoVer-Net decoder towers (port of
-`cellvit_tpu/models/cellvit.py` for `encoder_type="histo"`).
+"""CellViT with a ViT-256 or SAM encoder and HoVer-Net decoder towers (port
+of `cellvit_tpu/models/cellvit.py`).
 
 Module attribute names follow the reference torch CellViT (the keys that
 `cellvit_tpu.models.checkpoint_io.export_torch_state_dict` emits), so a
 reference state dict loads with `load_state_dict`:
 
-  encoder.*                      HistoViT
+  encoder.*                      HistoViT, or SamViT
+  classifier_head.*              tissue head on the pooled SAM neck (SAM only)
   decoder0.{j}.block.*           Conv2DBlocks on the image (skip p0)
   decoder1..3.{j}.block.*        Deconv2DBlocks on skip tokens (p1..p3)
   {branch}.bottleneck_upsampler  ConvT on the last skip (z4)
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from cellvit_tpu_torch.models.layers import ConvBNRelu, ConvTranspose2x2, DeconvBlock
+from cellvit_tpu_torch.models.sam_vit import SamViT
 from cellvit_tpu_torch.models.vit import HistoViT
 
 BRANCHES = (
@@ -73,7 +75,11 @@ class UpsamplingBranch(nn.Module):
 
 
 class CellViT(nn.Module):
-    """CellViT segmentation model (HoVer-Net heads), histo encoder.
+    """CellViT segmentation model (HoVer-Net heads). `encoder_type` "histo"
+    is the ViT-256/DINO encoder with its CLS-token tissue head; "sam" is the
+    SAM ViTDet encoder (`global_attn_indexes`, `window_size`, a
+    `prompt_embed_dim`-channel neck) with `classifier_head` on the pooled
+    neck.
 
     forward(x: (B, H, W, 3) normalised) returns a dict:
       tissue_types       (B, num_tissue_classes)        raw logits
@@ -88,24 +94,32 @@ class CellViT(nn.Module):
                  depth: int, num_heads: int, extract_layers: Sequence[int],
                  encoder_type: str = "histo", mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop_rate: float = 0.0, regression_loss: bool = False,
-                 patch_size: int = 16) -> None:
+                 global_attn_indexes: Sequence[int] = (), window_size: int = 14,
+                 prompt_embed_dim: int = 256, patch_size: int = 16) -> None:
         super().__init__()
-        if encoder_type != "histo":
-            raise NotImplementedError(
-                f"encoder_type={encoder_type!r}: only the histo (ViT-256) encoder is "
-                "ported; the SAM encoders are a later slice of the port"
-            )
         if len(extract_layers) != 4:
             raise ValueError("need 4 skip connections")
         self.num_nuclei_classes = num_nuclei_classes
         self.embed_dim = embed_dim
+        self.encoder_type = encoder_type
         self.patch_size = patch_size
         self.regression_loss = regression_loss
-        self.encoder = HistoViT(
-            embed_dim=embed_dim, depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
-            qkv_bias=qkv_bias, num_classes=num_tissue_classes, patch_size=patch_size,
-            extract_layers=extract_layers,
-        )
+        if encoder_type == "histo":
+            self.encoder = HistoViT(
+                embed_dim=embed_dim, depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
+                qkv_bias=qkv_bias, num_classes=num_tissue_classes, patch_size=patch_size,
+                extract_layers=extract_layers,
+            )
+        elif encoder_type == "sam":
+            self.encoder = SamViT(
+                embed_dim=embed_dim, depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
+                qkv_bias=qkv_bias, out_chans=prompt_embed_dim, patch_size=patch_size,
+                window_size=window_size, global_attn_indexes=global_attn_indexes,
+                extract_layers=extract_layers,
+            )
+            self.classifier_head = nn.Linear(prompt_embed_dim, num_tissue_classes)
+        else:
+            raise ValueError(f"unknown encoder_type {encoder_type!r}")
         s11, s12, bott = self.skip_dims
         d = drop_rate
         self.decoder0 = nn.Sequential(ConvBNRelu(3, 32, dropout=d), ConvBNRelu(32, 64, dropout=d))
@@ -136,19 +150,20 @@ class CellViT(nn.Module):
         if h % self.patch_size or w % self.patch_size:
             raise ValueError(f"input {h}×{w} is not a multiple of the patch size")
         ht, wt = h // self.patch_size, w // self.patch_size
-        dtype = self.encoder.pos_embed.dtype
-        xc = x.to(dtype).permute(0, 3, 1, 2)
-        cls_logits, _, skips = self.encoder(xc)
-
-        def grid(z: torch.Tensor) -> torch.Tensor:
-            return z[:, 1:, :].reshape(b, ht, wt, z.shape[-1]).permute(0, 3, 1, 2)
-
-        z1, z2, z3, z4 = (grid(z) for z in skips)
+        xc = x.to(self.encoder.patch_embed.proj.weight.dtype).permute(0, 3, 1, 2)
+        if self.encoder_type == "histo":
+            tissue, _, skips = self.encoder(xc)
+            # skips are token sequences with a CLS token first
+            skips = [z[:, 1:, :].reshape(b, ht, wt, z.shape[-1]) for z in skips]
+        else:
+            pooled, _, skips = self.encoder(xc)  # skips are (B, Ht, Wt, E) already
+            tissue = self.classifier_head(pooled)
+        z1, z2, z3, z4 = (z.permute(0, 3, 1, 2) for z in skips)
         p0 = self.decoder0(xc)
         p1 = self.decoder1(z1)
         p2 = self.decoder2(z2)
         p3 = self.decoder3(z3)
-        return {"tissue_types": cls_logits}, (p0, p1, p2, p3), z4
+        return {"tissue_types": tissue}, (p0, p1, p2, p3), z4
 
     def forward(self, x: torch.Tensor, retrieve_tokens: bool = False) -> Dict[str, torch.Tensor]:
         out, (p0, p1, p2, p3), z4 = self.encode_features(x)
@@ -177,7 +192,23 @@ def CellViT256(num_nuclei_classes: int, num_tissue_classes: int, drop_rate: floa
     )
 
 
-def CellViTSAM(*args, **kwargs) -> CellViT:
-    raise NotImplementedError(
-        "CellViTSAM: the SAM encoders are a later slice of the port"
+SAM_CONFIGS = {
+    # reference cellvit.py:646-665
+    "SAM-B": dict(embed_dim=768, depth=12, num_heads=12,
+                  global_attn_indexes=(2, 5, 8, 11), extract_layers=(3, 6, 9, 12)),
+    "SAM-L": dict(embed_dim=1024, depth=24, num_heads=16,
+                  global_attn_indexes=(5, 11, 17, 23), extract_layers=(6, 12, 18, 24)),
+    "SAM-H": dict(embed_dim=1280, depth=32, num_heads=16,
+                  global_attn_indexes=(7, 15, 23, 31), extract_layers=(8, 16, 24, 32)),
+}
+
+
+def CellViTSAM(num_nuclei_classes: int, num_tissue_classes: int, vit_structure: str,
+               drop_rate: float = 0.0, regression_loss: bool = False) -> CellViT:
+    """CellViT with a SAM ViTDet backbone; `vit_structure` is SAM-B, SAM-L or
+    SAM-H (window 14, a 256-channel neck)."""
+    return CellViT(
+        num_nuclei_classes=num_nuclei_classes, num_tissue_classes=num_tissue_classes,
+        encoder_type="sam", drop_rate=drop_rate, regression_loss=regression_loss,
+        **SAM_CONFIGS[vit_structure.upper()],
     )

@@ -1,11 +1,12 @@
 """Weights for the port: reference `.pth` checkpoints and the JAX package's
-variables (port of the CellViT-256 part of `cellvit_tpu/models/checkpoint_io.py`).
+variables (port of the CellViT part of `cellvit_tpu/models/checkpoint_io.py`).
 
 The port's module names are the reference torch key names, so a reference
 state dict loads as it is. `state_dict_from_flax` is this package's own copy
 of the flax → torch key mapping and weight transposes
-(`_flax_path_to_torch_key`, `_INVERSE`, `_inverse_patch`) for the histo
-CellViT; it takes nested dicts of numpy arrays, so nothing of JAX is needed.
+(`_flax_path_to_torch_key`, `_INVERSE`, `_inverse_patch`) for CellViT with a
+histo or SAM encoder; it takes nested dicts of numpy arrays, so nothing of
+JAX is needed.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from cellvit_tpu_torch.models.cellvit import BRANCHES, CellViT, CellViT256
+from cellvit_tpu_torch.models.cellvit import BRANCHES, CellViT, CellViT256, CellViTSAM
 
 # flax stage name in a tower → (torch Sequential name, number of ConvBNRelu)
 _BRANCH_STAGES = {
@@ -33,6 +34,13 @@ _BRANCH_TAILS = {
     "d2_up": ("decoder2_upsampler", 2),
     "d1_up": ("decoder1_upsampler", 2),
     "header": ("decoder0_header", 2),
+}
+# SAM neck: Sequential indices 0 and 2 are the convs, 1 and 3 LayerNorm2d
+_NECK = {
+    "neck_conv1": ("neck.0", "conv"),
+    "neck_ln1": ("neck.1", "norm"),
+    "neck_conv2": ("neck.2", "conv"),
+    "neck_ln2": ("neck.3", "norm"),
 }
 
 _INVERSE = {
@@ -65,13 +73,21 @@ def _conv_bn(inner: str, leaf: str, coll: str, idx: Dict[str, int]) -> Tuple[str
     return f"block.{idx[inner]}.{name}", tf
 
 
-def flax_path_to_torch_key(path: Tuple[str, ...], coll: str) -> Tuple[str, str]:
-    """(torch key, transform) for one leaf of a histo CellViT's variables."""
+def flax_path_to_torch_key(path: Tuple[str, ...], coll: str, sam: bool = False) -> Tuple[str, str]:
+    """(torch key, transform) for one leaf of a CellViT's variables; `sam`
+    for a SAM encoder (its MLP layers are `lin1`/`lin2`)."""
     parts, leaf = list(path), path[-1]
+    if parts[0] == "classifier_head":
+        name, tf = _leaf(leaf, "linear", coll)
+        return f"classifier_head.{name}", tf
     if parts[0] == "encoder":
         sub = parts[1:]
         if sub[0] in ("cls_token", "pos_embed"):
             return f"encoder.{sub[0]}", "none"
+        if sub[0] in _NECK:
+            tname, kind = _NECK[sub[0]]
+            name, tf = _leaf(leaf, kind, coll)
+            return f"encoder.{tname}.{name}", tf
         if sub[0] == "patch_embed":
             return ("encoder.patch_embed.proj.weight", "patch") if leaf == "kernel" else (
                 "encoder.patch_embed.proj.bias", "none")
@@ -86,9 +102,12 @@ def flax_path_to_torch_key(path: Tuple[str, ...], coll: str) -> Tuple[str, str]:
             if inner in ("norm1", "norm2"):
                 name, tf = _leaf(leaf, "norm", coll)
                 return f"encoder.blocks.{i}.{inner}.{name}", tf
+            if inner == "attn" and sub[2] in ("rel_pos_h", "rel_pos_w"):
+                return f"encoder.blocks.{i}.attn.{sub[2]}", "none"
             if inner in ("attn", "mlp"):
+                layer = {"fc1": "lin1", "fc2": "lin2"}.get(sub[2], sub[2]) if sam else sub[2]
                 name, tf = _leaf(leaf, "linear", coll)
-                return f"encoder.blocks.{i}.{inner}.{sub[2]}.{name}", tf
+                return f"encoder.blocks.{i}.{inner}.{layer}.{name}", tf
         raise KeyError(f"unexportable path {path}")
 
     m = re.match(r"decoder(\d)_(\d+)$", parts[0])
@@ -122,15 +141,17 @@ def state_dict_from_flax(
     in_chans: int = 3,
 ) -> Dict[str, torch.Tensor]:
     """The JAX package's CellViT variables (nested dicts of arrays) → this
-    package's state dict, fp32 tensors under the reference torch key names."""
+    package's state dict, fp32 tensors under the reference torch key names.
+    A SAM encoder is recognised by its neck."""
     out: Dict[str, torch.Tensor] = {}
+    sam = "neck_conv1" in params.get("encoder", {})
 
     def walk(node: Mapping[str, Any], path: Tuple[str, ...], coll: str) -> None:
         for k, v in node.items():
             if isinstance(v, Mapping):
                 walk(v, path + (k,), coll)
                 continue
-            key, tf = flax_path_to_torch_key(path + (k,), coll)
+            key, tf = flax_path_to_torch_key(path + (k,), coll, sam)
             arr = np.asarray(v, dtype=np.float32)
             arr = _inverse_patch(arr, patch_size, in_chans) if tf == "patch" else _INVERSE[tf](arr)
             out[key] = torch.from_numpy(np.array(arr, np.float32))  # a writable copy
@@ -163,7 +184,7 @@ def unflatten_dict(flat: Mapping[str, Any], sep: str = ".") -> Dict[str, Any]:
 
 
 def build_model_from_config(arch: str, run_conf: Mapping[str, Any]) -> CellViT:
-    """Rebuild the model from a checkpoint's config (histo CellViT only)."""
+    """Rebuild the model from a checkpoint's config."""
     data, mcfg = run_conf["data"], run_conf.get("model", {})
     common = dict(
         num_nuclei_classes=data["num_nuclei_classes"],
@@ -177,7 +198,9 @@ def build_model_from_config(arch: str, run_conf: Mapping[str, Any]) -> CellViT:
             embed_dim=mcfg["embed_dim"], depth=mcfg["depth"], num_heads=mcfg["num_heads"],
             extract_layers=tuple(mcfg["extract_layers"]), encoder_type="histo", **common,
         )
-    raise NotImplementedError(f"arch {arch!r} is not ported yet (histo CellViT only)")
+    if arch == "CellViTSAM":
+        return CellViTSAM(vit_structure=mcfg["backbone"], **common)
+    raise NotImplementedError(f"arch {arch!r} is not ported yet")
 
 
 def load_checkpoint(

@@ -95,8 +95,27 @@ class Mlp(nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channels of an NCHW map (the SAM neck's
+    LayerNorm2d): biased variance, eps 1e-6, computed in fp32, returned in
+    the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(1, keepdim=True)
+        var = (x32 - mean).square().mean(1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]).to(x.dtype)
+
+
 @lru_cache(maxsize=32)
-def _resize_matrix_np(n_in: int, n_out: int, scale: float) -> np.ndarray:
+def _resize_matrix_np(n_in: int, n_out: int, scale: float, mode: str) -> np.ndarray:
     a = -0.75
 
     def cubic(t: np.ndarray) -> np.ndarray:
@@ -110,16 +129,25 @@ def _resize_matrix_np(n_in: int, n_out: int, scale: float) -> np.ndarray:
     mat = np.zeros((n_out, n_in), dtype=np.float64)
     for i in range(n_out):
         src = (i + 0.5) / scale - 0.5
-        idx = np.arange(int(np.floor(src)) - 1, int(np.floor(src)) + 3)
-        w = cubic(src - idx)
+        base = int(np.floor(src))
+        if mode == "bicubic":
+            idx = np.arange(base - 1, base + 3)
+            w = cubic(src - idx)
+        elif mode == "linear":
+            idx = np.array([base, base + 1])
+            w = np.array([1.0 - (src - base), src - base])
+        else:
+            raise ValueError(f"unknown resize mode {mode}")
         for j, wj in zip(np.clip(idx, 0, n_in - 1), w):
             mat[i, j] += wj
     return mat.astype(np.float32)
 
 
-def resize_matrix_1d(n_in: int, n_out: int, scale: float) -> torch.Tensor:
-    """Dense (n_out, n_in) bicubic resize operator with torch `F.interpolate`
+def resize_matrix_1d(n_in: int, n_out: int, scale: float, mode: str = "bicubic") -> torch.Tensor:
+    """Dense (n_out, n_in) resize operator with torch `F.interpolate`
     semantics for an explicit `scale_factor`: src = (dst + 0.5) / scale − 0.5
-    (align_corners=False), cubic convolution with a = −0.75, source indices
-    clamped. Taking `scale` explicitly keeps callers' scale fudges exact."""
-    return torch.from_numpy(_resize_matrix_np(n_in, n_out, float(scale)))
+    (align_corners=False), source indices clamped; "bicubic" is cubic
+    convolution with a = −0.75 (the DINO pos-emb), "linear" two-tap linear
+    weights (SAM's rel-pos tables). Taking `scale` explicitly keeps callers'
+    scale fudges exact."""
+    return torch.from_numpy(_resize_matrix_np(n_in, n_out, float(scale), mode))

@@ -1,12 +1,22 @@
-"""Flash attention forward (port of `cellvit_tpu/ops/attention.py:flash_attention`).
+"""Attention ops of the encoders (port of `cellvit_tpu/ops/attention.py`).
 
-softmax(q·kᵀ·scale)·v over (B, N, H, D) tensors — the JAX package's layout —
-without materialising the logits. On a CUDA tensor the hand-written kernel
-`csrc/flash_attn.cu` runs (bf16, D = 64); on a CPU tensor the plain version
-below, which computes the same function in fp32.
+Four ops, each a hand-written CUDA kernel on a CUDA tensor and a plain
+PyTorch version of the same function on a CPU tensor:
 
-Both also give the fp32 natural-log log-sum-exp of the scaled logits per
-query row, (B, H, N), the residual a flash backward needs.
+- `flash_attention` (B1, `csrc/flash_attn.cu`): softmax(q·kᵀ·scale)·v over
+  (B, N, H, D), the ViT-256 encoder's attention, plus the fp32 natural-log
+  log-sum-exp per query row, (B, H, N), the residual a flash backward needs.
+- `window_qkv_attention` (B5, `csrc/win_qkv_attn.cu`): the SAM windowed
+  blocks' qkv projection and decomposed rel-pos attention, fused per window.
+- `relpos_flash_attention` (B6, `csrc/relpos_attn.cu`): flash attention with
+  the decomposed rel-pos bias added to each logits tile, for SAM's global
+  blocks.
+- `window_attention` (B7, `csrc/win_attn.cu`): whole-window attention over
+  N ≤ 256 tokens on the lane-augmented q′/k′ of `relpos_aug`.
+
+`flash_attention_relpos` routes a SAM rel-pos attention to B6 or B7 by the
+grid's shape, as the JAX package does. The kernels take bf16 and accumulate
+in fp32; the plain versions compute in fp32 and return the input dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +28,8 @@ import torch
 from cellvit_tpu_torch import _build
 
 SUPPORTED_HEAD_DIMS = (64,)
+#: head dims of the SAM kernels B5-B7: SAM-B/L use 64, SAM-H 80
+SAM_HEAD_DIMS = (64, 80)
 
 #: Bounds of the bf16 kernel's result against the fp32 plain version, in the
 #: units of `flash_errors`. Over N keys of unit-variance logits |o| is only
@@ -26,25 +38,60 @@ SUPPORTED_HEAD_DIMS = (64,)
 #: padded key or a skipped accumulator rescale gives ≥ 9e-3 in "l2".
 FLASH_BOUNDS = {"max": 1e-2, "mean": 1e-2, "l2": 5e-3, "lse": 1e-3}
 
+#: B5 against its fp32 plain version, relative to |o| (`attn_errors`). The
+#: kernel rounds q, k and v to bf16 after the fp32 projection, then p and o:
+#: on SAM-H-like inputs `tests/test_torch_sam.py` plays these roundings to
+#: 3.1e-3 in "l2", 2.7e-3 in "mean" and 5.7e-3 in "max". A bias from the
+#: scaled q, or masked zero-padded window tokens, gives ≥ 0.56 in "l2".
+WIN_QKV_BOUNDS = {"max": 3e-2, "mean": 1.2e-2, "l2": 1e-2}
+#: B6, relative to |o|. Bh/Bw arrive in bf16 (as in the JAX package) and p
+#: and o are rounded to bf16: 2.2e-3 in "l2", 4.6e-3 in "max" on a 32×32
+#: grid. Swapping Bh and Bw, or a column index off by one, gives ≥ 1.0.
+RELPOS_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 8e-3}
+#: B7, relative to |o|: rounding p and o to bf16 gives 2.0e-3 in "l2" on a
+#: 14×16 grid; the zero-filled keys of the last tile left unmasked give
+#: 4.0e-2 in "l2" and "mean".
+WINDOW_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 8e-3}
 
-def flash_errors(o: torch.Tensor, lse: torch.Tensor, ref_o: torch.Tensor,
-                 ref_lse: torch.Tensor) -> Dict[str, float]:
-    """Errors of (o, lse) against a reference: max|Δo| / max|o|,
-    mean|Δo| / mean|o|, ‖Δo‖₂ / ‖o‖₂ and max|Δlse|."""
+
+def attn_errors(o: torch.Tensor, ref_o: torch.Tensor) -> Dict[str, float]:
+    """Errors of o against a reference, relative to the reference's size:
+    max|Δo| / max|o|, mean|Δo| / mean|o| and ‖Δo‖₂ / ‖o‖₂."""
     ref_o = ref_o.float()
     err = o.float() - ref_o
     return {
         "max": (err.abs().max() / ref_o.abs().max()).item(),
         "mean": (err.abs().mean() / ref_o.abs().mean()).item(),
         "l2": (err.norm() / ref_o.norm()).item(),
-        "lse": (lse - ref_lse).abs().max().item(),
     }
+
+
+def flash_errors(o: torch.Tensor, lse: torch.Tensor, ref_o: torch.Tensor,
+                 ref_lse: torch.Tensor) -> Dict[str, float]:
+    """`attn_errors` of o, and max|Δlse|."""
+    return dict(attn_errors(o, ref_o), lse=(lse - ref_lse).abs().max().item())
+
+
+def within(errs: Dict[str, float], bounds: Dict[str, float]) -> bool:
+    return all(errs[key] <= bound for key, bound in bounds.items())
+
+
+def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
+    """A kernel operand: bf16, unit stride over its last dim, 16-byte rows."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bf16; {what} is {t.dtype}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} kernel needs {what} with unit last stride and 16-byte rows")
+
+
+# ------------------------------------------------------ B1 flash attention
 
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Reference formula: fp32 logits, softmax and product; output in q's dtype."""
+    """Reference formula: fp32 logits, softmax and product; output in q's
+    dtype. q/k may be wider than v."""
     d = q.shape[-1]
     scale = d**-0.5 if scale is None else scale
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -64,12 +111,9 @@ def _flash_attention_cuda(
             f"{SUPPORTED_HEAD_DIMS}; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16; {name} is {t.dtype}")
-        if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8 or t.stride(0) % 8:
-            raise ValueError(f"flash kernel needs {name} with unit D stride and 16-byte rows")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash kernel needs {name} 16-byte aligned")
+        _check_rows("flash", t, name)
+        if t.stride(2) != d:
+            raise ValueError(f"flash kernel needs {name} with head stride D")
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     fn = _build.bind("flash_attn.cu", "flash_attn_fwd", "pppppiiiiiiiiiif")
@@ -102,3 +146,256 @@ def flash_attention(
     else:
         raise ValueError(f"unsupported device {q.device}")
     return (o, lse) if return_lse else o
+
+
+# ------------------------------------- B5 fused window qkv + rel-pos attention
+
+
+def window_qkv_attention_plain(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], rel_pos_h: torch.Tensor,
+    rel_pos_w: torch.Tensor, num_heads: int,
+) -> torch.Tensor:
+    """fp32 formula of the fused window block (`_win_qkv_ref`): per window,
+    qkv = x·w + b; softmax(q·scale·kᵀ + Bh + Bw)·v with the bias from the
+    unscaled q; heads concatenated. Output in x's dtype."""
+    nw, n, c = x.shape
+    hd = c // num_heads
+    side = rel_pos_h.shape[0]
+    qkv = x.float() @ w.float()
+    if b is not None:
+        qkv = qkv + b.float()
+    q, k, v = qkv.reshape(nw, n, 3, num_heads, hd).unbind(2)  # (NW, N, H, hd)
+    logits = torch.einsum("wqhd,wkhd->whqk", q * hd**-0.5, k)
+    rq = q.reshape(nw, side, side, num_heads, hd)
+    bh = torch.einsum("wijnd,ikd->wnijk", rq, rel_pos_h.float())
+    bw = torch.einsum("wijnd,jld->wnijl", rq, rel_pos_w.float())
+    bias = (bh[..., :, None] + bw[..., None, :]).reshape(nw, num_heads, n, n)
+    p = torch.softmax(logits + bias, dim=-1)
+    return torch.einsum("whqk,wkhd->wqhd", p, v).reshape(nw, n, c).to(x.dtype)
+
+
+def _window_qkv_attention_cuda(x, w, b, rel_pos_h, rel_pos_w, num_heads: int) -> torch.Tensor:
+    nw, n, c = x.shape
+    hd = c // num_heads
+    side = rel_pos_h.shape[0]
+    if (hd not in SAM_HEAD_DIMS or hd * num_heads != c or side * side != n or n > 256
+            or c % 32 or w.shape != (c, 3 * c)):
+        raise ValueError(
+            f"window qkv kernel takes (NW, side², C) windows with side² ≤ 256, C a "
+            f"multiple of 32 and head dim in {SAM_HEAD_DIMS}; got x {tuple(x.shape)}, "
+            f"w {tuple(w.shape)}, {num_heads} heads, tables {tuple(rel_pos_h.shape)}"
+        )
+    wt = w.t().contiguous()  # (3C, C): the qkv Linear's own weight layout
+    _check_rows("window qkv", x, "x")
+    _check_rows("window qkv", wt, "the qkv weight")
+    if not x.is_contiguous():
+        raise ValueError("window qkv kernel needs contiguous x")
+    bias = b.float().contiguous() if b is not None else None
+    rh = rel_pos_h.to(torch.bfloat16).contiguous()
+    rw = rel_pos_w.to(torch.bfloat16).contiguous()
+    o = torch.empty_like(x)
+    fn = _build.bind("win_qkv_attn.cu", "win_qkv_attn_fwd", "ppppppiiiiif")
+    _build.LAUNCHES["window_qkv_attention"] += 1
+    err = fn(
+        x.data_ptr(), wt.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        rh.data_ptr(), rw.data_ptr(), o.data_ptr(), nw, n, c, num_heads, side,
+        float(hd**-0.5), _build.stream_of(x),
+    )
+    _build.check(err, "win_qkv_attn_fwd")
+    return o
+
+
+def window_qkv_attention(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], rel_pos_h: torch.Tensor,
+    rel_pos_w: torch.Tensor, num_heads: int,
+) -> torch.Tensor:
+    """Fused qkv projection + decomposed rel-pos window attention.
+
+    x: (NW, N, C) LN'd window tokens, N = side², the zero-padded tokens of
+    edge windows included (they are projected to b and attended to, as in
+    the reference); w/b: the qkv projection as (C, 3C) and (3C,) (b may be
+    None); rel_pos_h/w: gathered (side, side, hd) tables (`gather_rel_pos`).
+    Returns (NW, N, C), head outputs concatenated, ready for the output
+    projection."""
+    if x.device.type == "cuda":
+        return _window_qkv_attention_cuda(x, w, b, rel_pos_h, rel_pos_w, num_heads)
+    if x.device.type == "cpu":
+        return window_qkv_attention_plain(x, w, b, rel_pos_h, rel_pos_w, num_heads)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+# ------------------------------------------- rel-pos bias terms and routing
+
+
+def rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor,
+                 grid_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decomposed rel-pos terms of (B, N, H, D) q on a (gh, gw) grid:
+    Bh[b, t, h, r] = q_t · RelH[row(t), r] and Bw[b, t, h, c] = q_t ·
+    RelW[col(t), c], (B, N, H, gh) and (B, N, H, gw). Inputs stay in q's
+    dtype; the products accumulate in fp32 and round to q's dtype, as the JAX
+    package's einsums do."""
+    b, n, h, d = q.shape
+    gh, gw = grid_hw
+    rq = q.reshape(b, gh, gw, h, d)
+    bh = torch.einsum("bijnd,ikd->bijnk", rq, rel_pos_h.to(q.dtype))
+    bw = torch.einsum("bijnd,jld->bijnl", rq, rel_pos_w.to(q.dtype))
+    return bh.reshape(b, n, h, gh), bw.reshape(b, n, h, gw)
+
+
+def relpos_aug(q: torch.Tensor, k: torch.Tensor, bh: torch.Tensor, bw: torch.Tensor,
+               grid_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-augmented q′ = [q·scale | Bh | Bw] and k′ = [k | 1{row} | 1{col}]
+    (`_relpos_aug`): q′·k′ᵀ = q·kᵀ·scale + Bh[q, row(k)] + Bw[q, col(k)]."""
+    gh, gw = grid_hw
+    b, n, h, d = q.shape
+    t = torch.arange(n, device=q.device)
+    onehot = torch.cat([torch.nn.functional.one_hot(t // gw, gh),
+                        torch.nn.functional.one_hot(t % gw, gw)], dim=-1).to(k.dtype)
+    q_aug = torch.cat([q * d**-0.5, bh, bw], dim=-1)
+    k_aug = torch.cat([k, onehot[None, :, None, :].expand(b, n, h, gh + gw)], dim=-1)
+    return q_aug, k_aug
+
+
+def direct_bias_fits(grid_hw: Tuple[int, int]) -> bool:
+    """The JAX package's test for its direct-bias kernel: key blocks of whole
+    grid rows that tile N, and N a multiple of 512 (64×64 and 32×32 grids
+    pass; 20×20 does not)."""
+    gh, gw = grid_hw
+    n = gh * gw
+    blk_k = gw * max(1, 512 // gw)
+    return n % 512 == 0 and n % blk_k == 0 and gh % (blk_k // gw) == 0
+
+
+def flash_attention_relpos(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rel_pos_h: torch.Tensor,
+    rel_pos_w: torch.Tensor, grid_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """SAM attention with the decomposed rel-pos bias
+    (`add_decomposed_rel_pos`): softmax(q·kᵀ·scale + Bh + Bw)·v over
+    token-major (B, N, H, D) q/k/v, N = gh·gw in row-major grid order, with
+    gathered tables (side, side, D). Routes as the JAX package does:
+
+    - N ≤ 256: whole-window attention (B7) on the lane-augmented q′/k′;
+    - grids that `direct_bias_fits`: the direct-bias flash kernel (B6);
+    - other (ragged) grids: flash attention on q′/k′, which needs B1 with q/k
+      wider than v. On a CPU tensor its plain version runs; the CUDA kernel
+      of B1 takes D = 64 and equal shapes only (ROADMAP C5).
+
+    Returns token-major (B, N, H, D)."""
+    b, n, h, d = q.shape
+    if n != grid_hw[0] * grid_hw[1]:
+        raise ValueError(f"{n} tokens do not form a {grid_hw} grid")
+    bh, bw = rel_pos_bias(q, rel_pos_h, rel_pos_w, grid_hw)
+    if n <= 256:
+        return window_attention(*relpos_aug(q, k, bh, bw, grid_hw), v)
+    if direct_bias_fits(grid_hw):
+        return relpos_flash_attention(q, k, v, bh, bw)
+    if q.device.type == "cuda":
+        raise NotImplementedError(
+            f"rel-pos attention on a ragged {grid_hw} grid needs the flash kernel with "
+            "q/k wider than v, which the port's B1 does not take yet (ROADMAP C5)"
+        )
+    return flash_attention_plain(*relpos_aug(q, k, bh, bw, grid_hw), v, scale=1.0)[0]
+
+
+# ------------------------------------------ B6 direct-bias flash attention
+
+
+def relpos_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bh: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """fp32 formula: softmax(q·kᵀ·scale + Bh[q, key // gw] + Bw[q, key % gw])·v
+    over (B, N, H, D), one batch element at a time (the logits are N²)."""
+    b, n, h, d = q.shape
+    out = []
+    for i in range(b):
+        logits = torch.einsum("qhd,khd->hqk", q[i].float(), k[i].float()) * d**-0.5
+        bias = (bh[i].float()[..., :, None] + bw[i].float()[..., None, :]).reshape(n, h, n)
+        p = torch.softmax(logits + bias.transpose(0, 1), dim=-1)
+        out.append(torch.einsum("hqk,khd->qhd", p, v[i].float()))
+    return torch.stack(out).to(q.dtype)
+
+
+def _relpos_flash_attention_cuda(q, k, v, bh, bw) -> torch.Tensor:
+    b, n, h, d = q.shape
+    gh, gw = bh.shape[-1], bw.shape[-1]
+    if d not in SAM_HEAD_DIMS or k.shape != q.shape or v.shape != q.shape or gh * gw != n:
+        raise ValueError(
+            f"rel-pos flash kernel takes equal (B, N, H, D) q/k/v with D in {SAM_HEAD_DIMS} "
+            f"and N = gh·gw; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+            f"grid ({gh}, {gw})"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_rows("rel-pos flash", t, name)
+        if t.stride(2) != d:
+            raise ValueError(f"rel-pos flash kernel needs {name} with head stride D")
+    bh = bh.to(torch.bfloat16).contiguous()
+    bw = bw.to(torch.bfloat16).contiguous()
+    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    fn = _build.bind("relpos_attn.cu", "relpos_attn_fwd", "ppppppiiiiiiiiiiiif")
+    _build.LAUNCHES["flash_attention_relpos"] += 1
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(), bw.data_ptr(), o.data_ptr(),
+        b, n, h, d, gh, gw, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(d**-0.5), _build.stream_of(q),
+    )
+    _build.check(err, "relpos_attn_fwd")
+    return o
+
+
+def relpos_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bh: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + bias)·v over token-major (B, N, H, D) with
+    bias[q, r·gw + j] = Bh[q, r] + Bw[q, j] (`rel_pos_bias`), never forming
+    the N² bias. q/k/v may be strided views of one qkv tensor."""
+    if q.device.type == "cuda":
+        return _relpos_flash_attention_cuda(q, k, v, bh, bw)
+    if q.device.type == "cpu":
+        return relpos_attention_plain(q, k, v, bh, bw)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+# ---------------------------------------------- B7 whole-window attention
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """fp32 formula: softmax(q·kᵀ)·v per batch element, no scale, over
+    token-major (B, N, H, ·); q/k may be wider than v."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _window_attention_cuda(q, k, v) -> torch.Tensor:
+    b, n, h, dqk = q.shape
+    d = v.shape[-1]
+    if (d not in SAM_HEAD_DIMS or n > 256 or k.shape != q.shape
+            or v.shape[:3] != q.shape[:3] or dqk > 288):
+        raise ValueError(
+            f"window attention kernel takes N ≤ 256, q′/k′ ≤ 288 wide and v's D in "
+            f"{SAM_HEAD_DIMS}; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    for name, t in (("q", q), ("k", k)):
+        if t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+            raise ValueError(f"window attention kernel needs bf16 {name} with unit last stride")
+    _check_rows("window attention", v, "v")
+    o = torch.empty((b, n, h, d), dtype=v.dtype, device=v.device)
+    fn = _build.bind("win_attn.cu", "win_attn_fwd", "ppppiiiiiiiiiiiiii")
+    _build.LAUNCHES["window_attention"] += 1
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n, h, dqk, d,
+        q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), _build.stream_of(q),
+    )
+    _build.check(err, "win_attn_fwd")
+    return o
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ)·v per batch element over N ≤ 256 tokens, token-major
+    (B, N, H, ·), with no scale (the caller folds it into q). q/k may be
+    wider than v; the output takes v's width."""
+    if q.device.type == "cuda":
+        return _window_attention_cuda(q, k, v)
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v)
+    raise ValueError(f"unsupported device {q.device}")

@@ -30,6 +30,21 @@ def blob_tiles(batch: int = 8, tile: int = 1024, seed: int = 0) -> Tuple[np.ndar
     return imgs, masks
 
 
+def random_sam_h(seed: int, device: str = "cuda"):
+    """A full-width CellViT-SAM-H (6 nucleus, 19 tissue classes) with random
+    weights from `seed`, built on `device`. The rel-pos tables are drawn at
+    std 0.05: their init is zero, which would leave the bias dead."""
+    from cellvit_tpu_torch.models.cellvit import CellViTSAM
+
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = CellViTSAM(num_nuclei_classes=6, num_tissue_classes=19, vit_structure="SAM-H")
+        for blk in model.encoder.blocks:
+            torch.nn.init.normal_(blk.attn.rel_pos_h, std=0.05)
+            torch.nn.init.normal_(blk.attn.rel_pos_w, std=0.05)
+    return model
+
+
 @torch.no_grad()
 def set_probe_weights(model) -> None:
     """Overwrite the image skip path (`decoder0`) and the last stage of the

@@ -1,10 +1,11 @@
 """Profile one batch of the PyTorch/CUDA port's device stage on the GPU.
 
-    python3 scripts/profile_torch_device_stage.py
+    python3 scripts/profile_torch_device_stage.py [--model cellvit256|sam-h]
 
-Runs the workload of `chip_smoke.py`'s main path: a full-width CellViT-256
-with the probe weights of `cellvit_tpu_torch/synthetic.py`, bf16, on its
-8 × 1024² blob tiles. After one warm-up batch,
+Runs the workload of one of `chip_smoke.py`'s main paths: a full-width
+CellViT-256 (the default) or CellViT-SAM-H with the probe weights of
+`cellvit_tpu_torch/synthetic.py`, bf16, on its 8 × 1024² blob tiles (SAM-H
+from `synthetic.random_sam_h`, as there). After one warm-up batch,
 it profiles one batch of `CellSegmentationInference._device_outputs` with
 `torch.profiler` (CPU and CUDA activities). It prints the batch's wall
 time, the device time summed over kernels and its share of the wall time,
@@ -13,6 +14,7 @@ and the ops that take the most device time with their kernel counts.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
@@ -25,10 +27,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference  # noqa: E402
 from cellvit_tpu_torch.models.cellvit import CellViT256  # noqa: E402
-from cellvit_tpu_torch.synthetic import blob_tiles, set_probe_weights  # noqa: E402
+from cellvit_tpu_torch.synthetic import blob_tiles, random_sam_h, set_probe_weights  # noqa: E402
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("cellvit256", "sam-h"), default="cellvit256")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device is available", file=sys.stderr)
         return 1
@@ -36,10 +41,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    print(f"card: {card}")
+    print(f"card: {card}; model {args.model}")
     imgs, _ = blob_tiles(8, 1024, 0)
-    torch.manual_seed(0)
-    model = CellViT256(num_nuclei_classes=6, num_tissue_classes=19)
+    if args.model == "cellvit256":
+        torch.manual_seed(0)
+        model = CellViT256(num_nuclei_classes=6, num_tissue_classes=19)
+    else:
+        model = random_sam_h(1, "cuda")
     set_probe_weights(model)
     infer = CellSegmentationInference(
         model=model, run_conf={"data": {"num_nuclei_classes": 6, "num_tissue_classes": 19}},

@@ -132,3 +132,29 @@ def test_check_wsi():
         infer.check_wsi(meta, magnification=20)
     with pytest.raises(RuntimeError, match="overlap"):
         infer.check_wsi(dict(meta, patch_overlap=32))
+
+
+def test_bindings_match_c_entry_points():
+    """Every `_build.bind(source, name, sig)` in the package spells the
+    argument list of the C entry point it binds: pointers (p), ints (i) and
+    floats (f), then the stream."""
+    import ast
+
+    protos = {}
+    for src in (PACKAGE / "csrc").glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            params = [p.strip() for p in m.group(2).split(",")]
+            assert params[-1] == "void* stream", (src.name, m.group(1))
+            kinds = "".join("p" if "*" in p else {"int": "i", "float": "f"}[p.split()[0]]
+                            for p in params[:-1])
+            protos[(src.name, m.group(1))] = kinds
+    bound = []
+    for py in PACKAGE.rglob("*.py"):
+        for node in ast.walk(ast.parse(py.read_text())):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "bind"):
+                src, name, sig = (ast.literal_eval(a) for a in node.args)
+                bound.append(name)
+                assert protos[(src, name)] == sig, (src, name, sig, protos[(src, name)])
+    assert sorted(bound) == sorted(name for _, name in protos)

@@ -173,8 +173,22 @@ def test_load_checkpoint_reads_reference_format(pair, tmp_path):
         assert torch.equal(model.state_dict()[k], v), k
 
 
-def test_sam_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        CellViTSAM(6, 19, "SAM-B")
-    with pytest.raises(NotImplementedError):
-        CellViT(encoder_type="sam", **KW)
+def test_sam_b_builds_with_reference_keys():
+    """CellViTSAM(6, 19, "SAM-B") has the reference torch key of every leaf
+    of the JAX SAM-B model, with as many values (the traced init tree, not
+    computed)."""
+    from cellvit_tpu.models import CellViTSAM as JaxCellViTSAM
+    from cellvit_tpu.models.checkpoint_io import _flax_path_to_torch_key
+
+    jm = JaxCellViTSAM(6, 19, "SAM-B")
+    shapes = jax.eval_shape(lambda k, x: jm.init(k, x, train=False), jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 3)))
+    want = {}
+    for coll, tree in shapes.items():
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key, _ = _flax_path_to_torch_key(tuple(p.key for p in path), coll, True)
+            want[key] = int(np.prod(leaf.shape))
+    tm = CellViTSAM(6, 19, "SAM-B")
+    got = {k: v.numel() for k, v in tm.state_dict().items() if not k.endswith("num_batches_tracked")}
+    assert got == want
+    assert tm.encoder.blocks[2].window_size == 0 and tm.encoder.blocks[3].window_size == 14

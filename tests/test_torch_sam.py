@@ -1,0 +1,405 @@
+"""Port's SAM encoder slice against the JAX package on the same inputs: the
+plain versions of the SAM attention kernels (B5 fused window qkv attention,
+B6 direct-bias flash attention, B7 whole-window attention) against the Pallas
+kernels in interpret mode, the tiny CellViT-SAM on each kernel's route, the
+weight bridge and checkpoint loading, and the bounds that hold the CUDA
+kernels to their plain versions against planted faults.
+
+Tolerances: the plain kernels within 3e-5 in fp32; the models within 2e-4
+(docs/PARITY.md)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cellvit_tpu.models import CellViT as JaxCellViT
+from cellvit_tpu.models.checkpoint_io import convert_state_dict, export_torch_state_dict
+from cellvit_tpu.models.fused import fused_forward_maps
+from cellvit_tpu.models.layers import resize_matrix_1d as jax_resize
+from cellvit_tpu.models.sam_vit import gather_rel_pos as jax_gather_rel_pos
+from cellvit_tpu.ops import attention as jax_attention
+from cellvit_tpu.ops.hv_postproc import instance_map_batch_maps as jax_instance_maps
+from cellvit_tpu.ops.instance_stats import instance_stats_batch as jax_stats
+from cellvit_tpu.ops.instance_stats import relabel_consecutive as jax_relabel
+from cellvit_tpu_torch import _build
+from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference
+from cellvit_tpu_torch.models import cellvit as torch_cellvit
+from cellvit_tpu_torch.models import sam_vit
+from cellvit_tpu_torch.models.cellvit import CellViT
+from cellvit_tpu_torch.models.checkpoint_io import (
+    load_checkpoint,
+    load_state_dict_into,
+    state_dict_from_flax,
+)
+from cellvit_tpu_torch.models.fused import forward_maps
+from cellvit_tpu_torch.models.layers import resize_matrix_1d
+from cellvit_tpu_torch.ops import attention
+from cellvit_tpu_torch.synthetic import set_probe_weights
+from test_torch_models import _random_variables
+
+# one intra-op thread each: the suite runs as parallel pytest workers
+torch.set_num_threads(1)
+
+# global blocks 1 and 3 take the B6/B7 routes; the windowed blocks 0 and 2 take B5
+KW = dict(num_nuclei_classes=6, num_tissue_classes=19, embed_dim=64, depth=4, num_heads=2,
+          extract_layers=(1, 2, 3, 4), encoder_type="sam", global_attn_indexes=(1, 3),
+          window_size=14)
+SIZES = ((512, 512), (224, 256), (128, 128))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+# ------------------------------------------------ plain kernels vs Pallas
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("c,nh,side", [(128, 4, 14), (160, 2, 14), (64, 2, 4)])
+def test_window_qkv_plain_matches_pallas(rng, c, nh, side, with_bias):
+    n, hd = side * side, c // nh
+    x = (rng.standard_normal((5, n, c)) * 0.4).astype(np.float32)
+    x[-1, n // 2:] = 0.0  # the zero-padded tokens of an edge window
+    w = (rng.standard_normal((c, 3 * c)) * c**-0.5).astype(np.float32)
+    b = (rng.standard_normal(3 * c) * 0.1).astype(np.float32) if with_bias else None
+    rh, rw = ((rng.standard_normal((side, side, hd)) * 0.2).astype(np.float32) for _ in range(2))
+    jb = None if b is None else jnp.asarray(b)
+    want = jax_attention.window_qkv_attention(jnp.asarray(x), jnp.asarray(w), jb, jnp.asarray(rh),
+                                              jnp.asarray(rw), nh, interpret=True)
+    oracle = jax_attention._win_qkv_ref(jnp.asarray(x), jnp.asarray(w), jb, jnp.asarray(rh),
+                                        jnp.asarray(rw), nh)
+    got = attention.window_qkv_attention(_t(x), _t(w), None if b is None else _t(b), _t(rh),
+                                         _t(rw), nh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=3e-5)
+
+
+@pytest.mark.parametrize("gh,gw,bq", [(32, 32, 128), (16, 32, 64)])
+def test_relpos_flash_plain_matches_pallas(rng, gh, gw, bq):
+    b, h, d, n = 1, 2, 32, gh * gw
+    q, k = ((rng.standard_normal((b, n, h, d)) * 0.5).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    rh = np.asarray(jax_gather_rel_pos(jnp.asarray(rng.standard_normal((2 * gh - 1, d)) * 0.3,
+                                                   jnp.float32), gh))
+    rw = np.asarray(jax_gather_rel_pos(jnp.asarray(rng.standard_normal((2 * gw - 1, d)) * 0.3,
+                                                   jnp.float32), gw))
+    want = jax_attention.flash_attention_relpos(
+        *(jnp.asarray(a) for a in (q, k, v, rh, rw)), grid_hw=(gh, gw), block_q=bq,
+        interpret=True)
+    assert attention.direct_bias_fits((gh, gw))
+    tq = _t(q)
+    bh, bw = attention.rel_pos_bias(tq, _t(rh), _t(rw), (gh, gw))
+    got = attention.relpos_flash_attention(tq, _t(k), _t(v), bh, bw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    routed = attention.flash_attention_relpos(tq, _t(k), _t(v), _t(rh), _t(rw), (gh, gw))
+    assert torch.equal(routed, got)
+
+
+def test_ragged_grid_fallback_matches_pallas(rng):
+    """A 16×20 grid fits neither B7 (N > 256) nor B6: the augmented-lane
+    flash fallback, whose plain version runs on the CPU."""
+    gh, gw, d = 16, 20, 32
+    q, k, v = (rng.standard_normal((1, gh * gw, 2, d)).astype(np.float32) for _ in range(3))
+    rh, rw = ((rng.standard_normal((s, s, d)) * 0.3).astype(np.float32) for s in (gh, gw))
+    want = jax_attention.flash_attention_relpos(
+        *(jnp.asarray(a) for a in (q, k, v, rh, rw)), grid_hw=(gh, gw), block_q=32,
+        interpret=True)
+    assert not attention.direct_bias_fits((gh, gw))
+    got = attention.flash_attention_relpos(*(_t(a) for a in (q, k, v, rh, rw)), (gh, gw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+@pytest.mark.parametrize("b,n,h,d,dv", [(5, 196, 2, 32, 24), (3, 64, 1, 16, 16)])
+def test_window_attention_plain_matches_pallas(rng, b, n, h, d, dv):
+    q, k = ((rng.standard_normal((b, n, h, d)) * 0.3).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((b, n, h, dv)).astype(np.float32)
+    want = jax_attention.window_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          window_block=2, interpret=True)
+    got = attention.window_attention(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(127, 27), (127, 31), (127, 63), (27, 27)])
+def test_linear_resize_and_gather_match_jax(rng, n_in, n_out):
+    scale = n_out / n_in
+    np.testing.assert_array_equal(resize_matrix_1d(n_in, n_out, scale, "linear").numpy(),
+                                  np.asarray(jax_resize(n_in, n_out, scale, "linear")))
+    table = rng.standard_normal((n_in, 8)).astype(np.float32)
+    side = (n_out + 1) // 2
+    np.testing.assert_allclose(sam_vit.gather_rel_pos(_t(table), side).numpy(),
+                               np.asarray(jax_gather_rel_pos(jnp.asarray(table), side)), atol=1e-6)
+
+
+# ------------------------------------------------------- the tiny model
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The tiny JAX CellViT-SAM with distinct seeded weights (rel-pos tables
+    at std 0.3, so the bias moves the logits) and the port's model carrying
+    the same weights."""
+    jm = JaxCellViT(**KW)
+    variables = _random_variables(jm, (1, 64, 64, 3), 2, train=False)
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, a: a * 15.0 if p[-1].key.startswith("rel_pos") else a, variables)
+    tm = CellViT(**KW).eval()
+    load_state_dict_into(tm, state_dict_from_flax(variables["params"], variables["batch_stats"]))
+    return jm, variables, tm
+
+
+def test_bridge_equals_export(pair):
+    _, variables, tm = pair
+    sd = state_dict_from_flax(variables["params"], variables["batch_stats"])
+    ref = export_torch_state_dict(variables, sam_encoder=True)
+    assert set(sd) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(sd[k].numpy(), np.asarray(v), err_msg=k)
+    model_keys = {k for k in tm.state_dict() if not k.endswith("num_batches_tracked")}
+    assert model_keys == set(ref)
+    assert "encoder.blocks.0.mlp.lin1.weight" in ref and "encoder.neck.3.bias" in ref
+
+
+def _spy_routes(monkeypatch):
+    """Record which SAM kernel route each attention call takes."""
+    calls = []
+    for mod, name in ((sam_vit, "window_qkv_attention"), (attention, "relpos_flash_attention"),
+                      (attention, "window_attention")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append((_name, tuple(a[0].shape)))
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_encoder_routes_match_jax(pair, monkeypatch, size):
+    """512²: 9 padded 14×14 windows (B5) and a 32×32 global grid (B6);
+    224×256: 2 windows (B5) and a 14×16 global grid (B7), its rel-pos tables
+    resized 127 → 27 and 127 → 31; 128²: 1 window (B5) and an 8×8 global
+    grid on the einsum path."""
+    jm, variables, tm = pair
+    calls = _spy_routes(monkeypatch)
+    x = np.random.default_rng(size[1]).uniform(-1, 1, (1, *size, 3)).astype(np.float32)
+    want_pooled, want_map, want_skips = jm.apply(variables, jnp.asarray(x),
+                                                 method=lambda m, x: m.encoder(x))
+    with torch.no_grad():
+        pooled, neck, skips = tm.encoder(torch.from_numpy(x).permute(0, 3, 1, 2))
+    if size == (512, 512):
+        assert calls == [("window_qkv_attention", (9, 196, 64)),
+                         ("relpos_flash_attention", (1, 1024, 2, 32))] * 2
+    elif size == (224, 256):
+        assert calls == [("window_qkv_attention", (2, 196, 64)),
+                         ("window_attention", (1, 224, 2, 32 + 14 + 16))] * 2
+    else:
+        assert calls == [("window_qkv_attention", (1, 196, 64))] * 2
+    np.testing.assert_allclose(pooled.numpy(), np.asarray(want_pooled), atol=2e-4)
+    np.testing.assert_allclose(neck.permute(0, 2, 3, 1).numpy(), np.asarray(want_map), atol=2e-4)
+    for a, b in zip(skips, want_skips):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-4)
+
+
+def test_forward_matches_jax(pair):
+    jm, variables, tm = pair
+    x = np.random.default_rng(1).uniform(-1, 1, (1, 224, 256, 3)).astype(np.float32)
+    want = jax.jit(lambda v, x: jm.apply(v, x, train=False, retrieve_tokens=True))(
+        variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), retrieve_tokens=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=2e-4, err_msg=k)
+    assert got["tokens"].shape == (1, 14, 16, 64)
+
+
+def test_forward_maps_matches_jax(pair):
+    jm, variables, tm = pair
+    x = np.random.default_rng(2).uniform(-1, 1, (1, 224, 256, 3)).astype(np.float32)
+    want = fused_forward_maps(jm, variables, jnp.asarray(x), retrieve_tokens=True)
+    got = forward_maps(tm, torch.from_numpy(x), retrieve_tokens=True)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=2e-4, err_msg=k)
+
+
+def test_device_outputs_match_jax():
+    """The device stage of a probe-weighted tiny CellViT-SAM: instance maps,
+    statistics and tokens equal the JAX composition of the same stage."""
+    torch.manual_seed(0)
+    model = CellViT(**KW)
+    set_probe_weights(model)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    jm, variables = JaxCellViT(**KW), convert_state_dict(sd, True)
+    rng = np.random.default_rng(7)
+    imgs = np.full((1, 224, 256, 3), 0.75, np.float32)
+    yy, xx = np.mgrid[0:224, 0:256]
+    for _ in range(25):
+        cy, cx, r = rng.integers(10, 214), rng.integers(10, 246), rng.integers(4, 9)
+        imgs[0][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.uniform(0.1, 0.4)
+    infer = CellSegmentationInference(model=model, run_conf={}, max_instances_per_tile=256,
+                                      device="cpu")
+    inst, stats, tokens = infer._device_outputs(imgs, 40)
+
+    out = fused_forward_maps(jm, variables, jnp.asarray((imgs - 0.5) / 0.5), retrieve_tokens=True)
+    want_inst = jax_instance_maps(out["np_prob"], out["hv0"], out["hv1"], use_pallas=False)
+    want_inst = jax.vmap(lambda m: jax_relabel(m, 224 * 256 // 2 + 2))(want_inst)
+    type_map = jnp.argmax(out["type_map_cmajor"], 1).astype(jnp.int32)
+    want = jax_stats(want_inst, type_map, out["np_prob"], max_instances=256, num_classes=6)
+    np.testing.assert_array_equal(inst, np.asarray(want_inst))
+    np.testing.assert_allclose(tokens, np.asarray(out["tokens"]), atol=2e-4)
+    for key in ("valid", "area", "bbox", "type"):
+        np.testing.assert_array_equal(stats[key], np.asarray(want[key]), err_msg=key)
+    np.testing.assert_allclose(stats["centroid"], np.asarray(want["centroid"]), rtol=1e-5, atol=1e-6)
+    assert tokens.shape == (1, 14, 16, 64) and stats["valid"].sum() >= 5
+
+
+def test_load_checkpoint_reads_cellvitsam(pair, tmp_path, monkeypatch):
+    """A reference-format `CellViTSAM` checkpoint: the config names the
+    backbone (a SAM-B entry cut to the tiny model's size here)."""
+    _, variables, tm = pair
+    tiny = {k: KW[k] for k in ("embed_dim", "depth", "num_heads", "global_attn_indexes",
+                               "extract_layers")}
+    monkeypatch.setitem(torch_cellvit.SAM_CONFIGS, "SAM-B", tiny)
+    sd = state_dict_from_flax(variables["params"], variables["batch_stats"])
+    config = {"data.num_nuclei_classes": 6, "data.num_tissue_classes": 19,
+              "model.backbone": "SAM-B"}
+    path = tmp_path / "model.pth"
+    torch.save({"arch": "CellViTSAM", "model_state_dict": sd, "config": config}, path)
+    model, _, run_conf = load_checkpoint(path)
+    assert run_conf["model"]["backbone"] == "SAM-B" and model.encoder_type == "sam"
+    for k, v in tm.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
+
+
+# -------------------------------------- kernel bounds against planted faults
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _softmax_bf16_p(logits, v, valid=None):
+    """The kernels' softmax·v: fp32 logits and row sum, p rounded to bf16
+    before the product, o rounded to bf16."""
+    if valid is not None:
+        logits = logits.masked_fill(~valid, -np.inf)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return (_bf(p) @ v) / p.sum(-1, keepdim=True)
+
+
+def _emulated_win_qkv(x, w, b, rh, rw, nh, fault):
+    """B5's arithmetic on the CPU: q, k, v rounded to bf16 after the fp32
+    projection, Bh/Bw from the rounded unscaled q, p and o rounded."""
+    nw, n, c = x.shape
+    hd, side = c // nh, rh.shape[0]
+    qkv = x.float() @ w.float() + b.float()
+    q, k, v = (_bf(t).transpose(1, 2) for t in qkv.reshape(nw, n, 3, nh, hd).unbind(2))
+    qb = q * hd**-0.5 if fault == "bias_from_scaled_q" else q
+    t = torch.arange(n)
+    bh = torch.einsum("whtd,trd->whtr", qb, rh.float()[t // side])
+    bw = torch.einsum("whtd,tcd->whtc", qb, rw.float()[t % side])
+    logits = q @ k.transpose(-1, -2) * hd**-0.5 + bh[..., t // side] + bw[..., t % side]
+    valid = None
+    if fault == "masked_padding":
+        valid = (x.abs().sum(-1) > 0)[:, None, None, :]
+    o = _softmax_bf16_p(logits, v, valid)
+    return _bf(o).transpose(1, 2).reshape(nw, n, c)
+
+
+def _emulated_relpos(q, k, v, bh, bw, fault):
+    """B6's arithmetic: bf16 q/k/v and Bh/Bw, fp32 logits, p and o rounded."""
+    b, n, h, d = q.shape
+    gh, gw = bh.shape[-1], bw.shape[-1]
+    key = torch.arange(n)
+    row, col = key // gw, key % gw
+    if fault == "index_off_by_one":
+        col = (col + 1) % gw
+    if fault == "swapped_bh_bw":
+        bh, bw = bw, bh
+    qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
+    bias = bh.float().transpose(1, 2)[..., row] + bw.float().transpose(1, 2)[..., col]
+    o = _softmax_bf16_p(qh @ kh.transpose(-1, -2) * d**-0.5 + bias, vh)
+    return _bf(o).transpose(1, 2)
+
+
+def _emulated_window(q, k, v, fault):
+    """B7's arithmetic on 64-key tiles: the keys past N in the last tile are
+    zero-filled and masked, unless the fault leaves them in (zero logits)."""
+    logits = q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)
+    vh = v.float().transpose(1, 2)
+    if fault == "unmasked_padded_keys":
+        pad = -logits.shape[-1] % 64
+        logits = torch.nn.functional.pad(logits, (0, pad))
+        vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
+    return _bf(_softmax_bf16_p(logits, vh)).transpose(1, 2)
+
+
+def _sam_inputs(seed, side_grid=20, window=14, c=320, nh=4):
+    """SAM-H-like inputs at a small size: LN'd tokens, weights of std
+    C^-0.5 (so q, k, v have unit variance) and rel-pos tables of std 0.1
+    (so the bias moves the logits by O(1))."""
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.randn((1, side_grid, side_grid, c), generator=g)
+    x, _ = sam_vit.window_partition(grid, window)
+    x = x.reshape(-1, window * window, c).to(torch.bfloat16)
+    w = (torch.randn((c, 3 * c), generator=g) * c**-0.5).to(torch.bfloat16)
+    b = (torch.randn(3 * c, generator=g) * 0.1).to(torch.bfloat16)
+    hd = c // nh
+    rh, rw = ((torch.randn((window, window, hd), generator=g) * 0.1).to(torch.bfloat16)
+              for _ in range(2))
+    return x, w, b, rh, rw, nh
+
+
+@pytest.mark.parametrize("kernel,fault", [
+    ("window_qkv", "none"), ("window_qkv", "bias_from_scaled_q"),
+    ("window_qkv", "masked_padding"),
+    ("relpos", "none"), ("relpos", "swapped_bh_bw"), ("relpos", "index_off_by_one"),
+    ("window", "none"), ("window", "unmasked_padded_keys"),
+])
+def test_sam_bounds_separate_rounding_from_kernel_faults(kernel, fault):
+    """Each SAM kernel's arithmetic, played on the CPU with its bf16
+    roundings, stays within its bounds against the fp32 plain version, and
+    each planted fault does not."""
+    if kernel == "window_qkv":
+        args = _sam_inputs(0)
+        got = _emulated_win_qkv(*args, fault)
+        ref = attention.window_qkv_attention_plain(*(a.float() if torch.is_tensor(a) else a
+                                                     for a in args))
+        bounds = attention.WIN_QKV_BOUNDS
+    else:
+        g = torch.Generator().manual_seed(1)
+        grid_hw = (32, 32) if kernel == "relpos" else (14, 16)
+        n, d = grid_hw[0] * grid_hw[1], 80
+        q, k, v = (torch.randn((1, n, 2, d), generator=g).to(torch.bfloat16) for _ in range(3))
+        rh = (torch.randn((grid_hw[0], grid_hw[0], d), generator=g) * 0.1).to(torch.bfloat16)
+        rw = (torch.randn((grid_hw[1], grid_hw[1], d), generator=g) * 0.1).to(torch.bfloat16)
+        bh, bw = attention.rel_pos_bias(q, rh, rw, grid_hw)
+        if kernel == "relpos":
+            got = _emulated_relpos(q, k, v, bh, bw, fault)
+            ref = attention.relpos_attention_plain(q, k, v, bh, bw)
+            bounds = attention.RELPOS_BOUNDS
+        else:
+            q_aug, k_aug = attention.relpos_aug(q, k, bh, bw, grid_hw)
+            got = _emulated_window(q_aug, k_aug, v, fault)
+            ref = attention.window_attention_plain(q_aug, k_aug, v)
+            bounds = attention.WINDOW_BOUNDS
+    errs = attention.attn_errors(got, ref)
+    assert attention.within(errs, bounds) == (fault == "none"), errs
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = dict(_build.LAUNCHES)
+    x, w, b, rh, rw, nh = _sam_inputs(3)
+    attention.window_qkv_attention(x.float(), w.float(), b.float(), rh.float(), rw.float(), nh)
+    q = torch.randn((1, 1024, 2, 64))
+    r = torch.randn((32, 32, 64)) * 0.1
+    attention.flash_attention_relpos(q, q, q, r, r, (32, 32))
+    q = torch.randn((1, 224, 2, 64))
+    attention.flash_attention_relpos(q, q, q, r[:14, :14], r[:16, :16], (14, 16))
+    assert _build.LAUNCHES == before
