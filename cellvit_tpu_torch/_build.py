@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("flash_attn.cu", "seg_scan.cu", "win_qkv_attn.cu", "relpos_attn.cu", "win_attn.cu")
+SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "seg_scan.cu", "win_qkv_attn.cu", "relpos_attn.cu",
+           "win_attn.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,6 +35,8 @@ _lock = threading.Lock()
 #: kernel launches per wrapper, counted where each wrapper launches its kernel
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
     "connected_components": 0,
     "flood": 0,
     "propagate_min": 0,

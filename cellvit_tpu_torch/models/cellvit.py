@@ -14,8 +14,10 @@ reference state dict loads with `load_state_dict`:
   {branch}.decoder0_header       fuse/upsample stages, 1×1 header last
 
 The shared skip projections run once and feed all three towers (the
-reference re-runs them per tower — identical outputs at inference).
-`forward` keeps the JAX package's NHWC layout at its inputs and outputs.
+reference re-runs them per tower — identical outputs at inference; the JAX
+package runs them once in training too). `forward` keeps the JAX package's
+NHWC layout at its inputs and outputs. `train()` switches BatchNorm to batch
+statistics and turns on the dropouts and the encoder's drop-path.
 """
 
 from __future__ import annotations
@@ -88,19 +90,28 @@ class CellViT(nn.Module):
       nuclei_type_map    (B, H, W, num_nuclei_classes)  raw logits
       [regression_map    (B, H, W, 2)]                  if regression_loss
       [tokens            (B, Ht, Wt, E)]                if retrieve_tokens
+
+    `drop_rate` acts in the histo encoder and after every decoder
+    ConvBNRelu; `attn_drop_rate` and `drop_path_rate` in the histo encoder
+    (the SAM encoder has none, as in the JAX package).
     """
 
     def __init__(self, num_nuclei_classes: int, num_tissue_classes: int, embed_dim: int,
                  depth: int, num_heads: int, extract_layers: Sequence[int],
                  encoder_type: str = "histo", mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 drop_rate: float = 0.0, regression_loss: bool = False,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, regression_loss: bool = False,
                  global_attn_indexes: Sequence[int] = (), window_size: int = 14,
                  prompt_embed_dim: int = 256, patch_size: int = 16) -> None:
         super().__init__()
         if len(extract_layers) != 4:
             raise ValueError("need 4 skip connections")
         self.num_nuclei_classes = num_nuclei_classes
+        self.num_tissue_classes = num_tissue_classes
         self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.extract_layers = tuple(extract_layers)
         self.encoder_type = encoder_type
         self.patch_size = patch_size
         self.regression_loss = regression_loss
@@ -108,7 +119,8 @@ class CellViT(nn.Module):
             self.encoder = HistoViT(
                 embed_dim=embed_dim, depth=depth, num_heads=num_heads, mlp_ratio=mlp_ratio,
                 qkv_bias=qkv_bias, num_classes=num_tissue_classes, patch_size=patch_size,
-                extract_layers=extract_layers,
+                extract_layers=extract_layers, dropout=drop_rate, attn_dropout=attn_drop_rate,
+                drop_path_rate=drop_path_rate,
             )
         elif encoder_type == "sam":
             self.encoder = SamViT(
@@ -143,21 +155,25 @@ class CellViT(nn.Module):
             return 256, 128, 312
         return 512, 256, 512
 
-    def encode_features(self, x: torch.Tensor):
+    def encode_features(self, x: torch.Tensor, freeze_encoder: bool = False):
         """Encoder + shared skip projections for NHWC `x`: returns
-        ({"tissue_types"}, (p0..p3) NCHW, z4 NCHW)."""
+        ({"tissue_types"}, (p0..p3) NCHW, z4 NCHW). With `freeze_encoder`
+        the encoder runs without autograd except its tissue head (the
+        reference `freeze_encoder` keeps the head trainable; SAM's
+        `classifier_head` sits outside the encoder)."""
         b, h, w, _ = x.shape
         if h % self.patch_size or w % self.patch_size:
             raise ValueError(f"input {h}×{w} is not a multiple of the patch size")
         ht, wt = h // self.patch_size, w // self.patch_size
         xc = x.to(self.encoder.patch_embed.proj.weight.dtype).permute(0, 3, 1, 2)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_encoder):
+            logits_or_pooled, cls_token, skips = self.encoder(xc)
         if self.encoder_type == "histo":
-            tissue, _, skips = self.encoder(xc)
+            tissue = self.encoder.head(cls_token) if freeze_encoder else logits_or_pooled
             # skips are token sequences with a CLS token first
             skips = [z[:, 1:, :].reshape(b, ht, wt, z.shape[-1]) for z in skips]
-        else:
-            pooled, _, skips = self.encoder(xc)  # skips are (B, Ht, Wt, E) already
-            tissue = self.classifier_head(pooled)
+        else:  # skips are (B, Ht, Wt, E) already
+            tissue = self.classifier_head(logits_or_pooled)
         z1, z2, z3, z4 = (z.permute(0, 3, 1, 2) for z in skips)
         p0 = self.decoder0(xc)
         p1 = self.decoder1(z1)
@@ -165,8 +181,9 @@ class CellViT(nn.Module):
         p3 = self.decoder3(z3)
         return {"tissue_types": tissue}, (p0, p1, p2, p3), z4
 
-    def forward(self, x: torch.Tensor, retrieve_tokens: bool = False) -> Dict[str, torch.Tensor]:
-        out, (p0, p1, p2, p3), z4 = self.encode_features(x)
+    def forward(self, x: torch.Tensor, retrieve_tokens: bool = False,
+                freeze_encoder: bool = False) -> Dict[str, torch.Tensor]:
+        out, (p0, p1, p2, p3), z4 = self.encode_features(x, freeze_encoder)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         nb = nhwc(self.nuclei_binary_map_decoder(p0, p1, p2, p3, z4))
         if self.regression_loss:
@@ -182,13 +199,15 @@ class CellViT(nn.Module):
 
 
 def CellViT256(num_nuclei_classes: int, num_tissue_classes: int, drop_rate: float = 0.0,
+               attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                regression_loss: bool = False) -> CellViT:
     """CellViT with the HIPT/DINO ViT-256 backbone: embed 384, depth 12,
     heads 6, skips at blocks 3/6/9/12."""
     return CellViT(
         num_nuclei_classes=num_nuclei_classes, num_tissue_classes=num_tissue_classes,
         embed_dim=384, depth=12, num_heads=6, extract_layers=(3, 6, 9, 12),
-        encoder_type="histo", drop_rate=drop_rate, regression_loss=regression_loss,
+        encoder_type="histo", drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
+        drop_path_rate=drop_path_rate, regression_loss=regression_loss,
     )
 
 

@@ -10,11 +10,80 @@ with `load_state_dict`.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm (eps 1e-5, momentum 0.1 ≡ flax's 0.9) whose running variance
+    follows flax's `nn.BatchNorm`, which the JAX package trains with: the
+    biased batch variance, where `nn.BatchNorm2d` keeps the unbiased one.
+    Training normalises with the batch statistics; evaluation with the
+    running ones. The keys stay `weight`, `bias`, `running_mean`,
+    `running_var` and `num_batches_tracked`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout whose mask draws from `self.generator` (set by
+    `use_generator`; torch's default generator when None)."""
+
+    def __init__(self, p: float = 0.0) -> None:
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: drop the residual branch per sample, scaling the
+    kept ones by 1 / (1 − rate)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],), generator=generator, device=x.device) < keep
+    mask = mask.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """`drop_path` as a module, drawing from `self.generator`."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return drop_path(x, self.rate, self.training, self.generator)
+
+
+def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every `Dropout` and `DropPath` of `model` at `generator`."""
+    for m in model.modules():
+        if isinstance(m, (Dropout, DropPath)):
+            m.generator = generator
 
 
 class ConvBNRelu(nn.Module):
@@ -26,9 +95,9 @@ class ConvBNRelu(nn.Module):
         super().__init__()
         self.block = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,9 +131,9 @@ class DeconvBlock(nn.Module):
         self.block = nn.Sequential(
             ConvTranspose2x2(in_channels, out_channels),
             nn.Conv2d(out_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2),
-            nn.BatchNorm2d(out_channels, eps=1e-5),
+            BatchNorm2d(out_channels, eps=1e-5),
             nn.ReLU(),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,16 +152,18 @@ class PatchEmbed(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP with exact-erf GELU."""
+    """Transformer MLP with exact-erf GELU, dropout after the GELU and after
+    fc2."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int) -> None:
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, dropout: float = 0.0) -> None:
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hidden_dim)
         self.act = nn.GELU()
         self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
 
 
 class LayerNorm2d(nn.Module):

@@ -4,8 +4,11 @@ Block, HistoViT).
 DINO/HIPT ViT-256: learned 1-D positional embedding with a CLS token,
 bicubic pos-emb interpolation (with the reference's +0.1 scale fudge) for
 other input sizes, and per-block skip extraction. Attention over 1024 or more
-tokens takes the flash route (`ops/attention.py`: the hand kernel on CUDA);
-shorter sequences take the einsum route.
+tokens takes the flash route (`ops/attention.py`: the hand kernels B1 and,
+for its backward, B8 on CUDA); shorter sequences, and training with attention
+dropout, take the einsum route. `train()` turns on the token, attention and
+MLP dropout and the drop-path, each drawing from its module's generator
+(`layers.use_generator`).
 """
 
 from __future__ import annotations
@@ -13,23 +16,28 @@ from __future__ import annotations
 import math
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from cellvit_tpu_torch.models.layers import Mlp, PatchEmbed, resize_matrix_1d
+from cellvit_tpu_torch.models.layers import DropPath, Dropout, Mlp, PatchEmbed, resize_matrix_1d
 from cellvit_tpu_torch.ops.attention import flash_attention
 
 FLASH_MIN_TOKENS = 1024
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with a fused qkv projection."""
+    """Multi-head self-attention with a fused qkv projection; dropout on the
+    attention probabilities (`attn_dropout`) and after the projection."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True) -> None:
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, dropout: float = 0.0,
+                 attn_dropout: float = 0.0) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.attn_drop = Dropout(attn_dropout)
+        self.proj_drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
@@ -37,40 +45,48 @@ class Attention(nn.Module):
         hd = c // h
         qkv = self.qkv(x).reshape(b, n, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, hd)
-        if n >= FLASH_MIN_TOKENS:
+        # the flash kernels never form the probabilities to drop from
+        if n >= FLASH_MIN_TOKENS and (not self.training or self.attn_drop.p == 0.0):
             out = flash_attention(q, k, v)
         else:
             attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
-            attn = torch.softmax(attn, dim=-1)
+            attn = self.attn_drop(torch.softmax(attn, dim=-1))
             out = torch.einsum("bhqk,bkhd->bqhd", attn.to(x.dtype), v)
-        return self.proj(out.reshape(b, n, c))
+        return self.proj_drop(self.proj(out.reshape(b, n, c)))
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: LN → MHA → (+), LN → MLP → (+)."""
+    """Pre-LN transformer block: LN → MHA → (+), LN → MLP → (+), each branch
+    through drop-path."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True) -> None:
+                 qkv_bias: bool = True, dropout: float = 0.0, attn_dropout: float = 0.0,
+                 drop_path_rate: float = 0.0) -> None:
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, dropout, attn_dropout)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dropout)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(self.attn(self.norm1(x)))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class HistoViT(nn.Module):
     """ViT with CLS token and 1-D pos-emb. `forward` takes NCHW images and
     returns (cls_logits, cls_token, skips): skips are the full token
-    sequences after each block index in `extract_layers` (1-based)."""
+    sequences after each block index in `extract_layers` (1-based).
+    `dropout` acts after the pos-emb, the attention projection and the MLP
+    layers; the drop-path rate rises linearly from 0 at the first block to
+    `drop_path_rate` at the last."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, num_classes: int = 0,
                  patch_size: int = 16, pretrain_img_size: int = 224,
-                 extract_layers: Sequence[int] = ()) -> None:
+                 extract_layers: Sequence[int] = (), dropout: float = 0.0,
+                 attn_dropout: float = 0.0, drop_path_rate: float = 0.0) -> None:
         super().__init__()
         n_pre = (pretrain_img_size // patch_size) ** 2
         self.embed_dim = embed_dim
@@ -80,8 +96,11 @@ class HistoViT(nn.Module):
         nn.init.trunc_normal_(self.cls_token, std=0.02)
         nn.init.trunc_normal_(self.pos_embed, std=0.02)
         self.patch_embed = PatchEmbed(embed_dim, patch_size)
+        self.pos_drop = Dropout(dropout)
+        rates = np.linspace(0.0, drop_path_rate, depth).tolist()
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias) for _ in range(depth)
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dropout, attn_dropout, rate)
+            for rate in rates
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self.head = nn.Linear(embed_dim, num_classes) if num_classes > 0 else nn.Identity()
@@ -106,7 +125,7 @@ class HistoViT(nn.Module):
         tokens = tokens.reshape(b, ht * wt, e)
         cls = self.cls_token.to(tokens.dtype).expand(b, 1, e)
         tokens = torch.cat([cls, tokens], dim=1)
-        return tokens + self._interpolated_pos_embed(ht, wt).to(tokens.dtype)
+        return self.pos_drop(tokens + self._interpolated_pos_embed(ht, wt).to(tokens.dtype))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
         tokens = self.prepare_tokens(x)

@@ -1,11 +1,13 @@
 """Attention ops of the encoders (port of `cellvit_tpu/ops/attention.py`).
 
 Four ops, each a hand-written CUDA kernel on a CUDA tensor and a plain
-PyTorch version of the same function on a CPU tensor:
+PyTorch version of the same function on a CPU tensor, and each a
+`torch.autograd.Function` with the JAX package's backward:
 
 - `flash_attention` (B1, `csrc/flash_attn.cu`): softmax(q·kᵀ·scale)·v over
-  (B, N, H, D), the ViT-256 encoder's attention, plus the fp32 natural-log
-  log-sum-exp per query row, (B, H, N), the residual a flash backward needs.
+  (B, N, H, ·), the ViT-256 encoder's attention, plus the fp32 natural-log
+  log-sum-exp per query row, (B, H, N), the residual of its backward. q/k may
+  be wider than v. Its backward is B8a/B8b (`csrc/flash_attn_bwd.cu`).
 - `window_qkv_attention` (B5, `csrc/win_qkv_attn.cu`): the SAM windowed
   blocks' qkv projection and decomposed rel-pos attention, fused per window.
 - `relpos_flash_attention` (B6, `csrc/relpos_attn.cu`): flash attention with
@@ -14,9 +16,13 @@ PyTorch version of the same function on a CPU tensor:
 - `window_attention` (B7, `csrc/win_attn.cu`): whole-window attention over
   N ≤ 256 tokens on the lane-augmented q′/k′ of `relpos_aug`.
 
-`flash_attention_relpos` routes a SAM rel-pos attention to B6 or B7 by the
-grid's shape, as the JAX package does. The kernels take bf16 and accumulate
-in fp32; the plain versions compute in fp32 and return the input dtype.
+`flash_attention_relpos` routes a SAM rel-pos attention to B6, B7 or B1 by
+the grid's shape, as the JAX package does. The kernels take bf16 and
+accumulate in fp32; the plain versions compute in fp32 and return the input
+dtype. On a CPU tensor each op runs its plain forward and plain backward.
+B6's backward is the lane-augmented flash backward (B1 then B8 on q′/k′);
+B5's and B7's recompute their plain version under autograd on both devices,
+as the JAX package's are XLA.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ import torch
 
 from cellvit_tpu_torch import _build
 
-SUPPORTED_HEAD_DIMS = (64,)
+#: v widths of the flash kernels B1/B8 (ViT-256 and SAM-B/L heads: 64,
+#: SAM-H: 80); q/k may be up to FLASH_MAX_QK wide
+FLASH_V_DIMS = (64, 80)
+FLASH_MAX_QK = 256
 #: head dims of the SAM kernels B5-B7: SAM-B/L use 64, SAM-H 80
 SAM_HEAD_DIMS = (64, 80)
 
@@ -37,6 +46,16 @@ SAM_HEAD_DIMS = (64, 80)
 #: Rounding p and o to bf16 gives ≈2e-3 of each; a dropped key, an unmasked
 #: padded key or a skipped accumulator rescale gives ≥ 9e-3 in "l2".
 FLASH_BOUNDS = {"max": 1e-2, "mean": 1e-2, "l2": 5e-3, "lse": 1e-3}
+
+#: B8a/B8b against the fp32 plain backward on the same q, k, v, o, lse and
+#: do (`flash_bwd_errors`): `attn_errors` of each of dq, dk and dv, relative
+#: to that gradient's own size. The kernels round p (for dv) and ds (for dq
+#: and dk) to bf16 before their products, and the gradients at the end: the
+#: CPU replay in `tests/test_torch_grad.py` plays these roundings to ≤ 2.4e-3
+#: in "l2" and ≤ 4.0e-3 in "max", at (1, 1025, 2, 64) and with q/k 120 wide
+#: against v 80. Δ left out, dk's scale dropped, an unmasked key past N, a
+#: query past N counted in dk/dv, or dp taken from o give ≥ 5.8e-2 in "l2".
+FLASH_BWD_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 1e-2}
 
 #: B5 against its fp32 plain version, relative to |o| (`attn_errors`). The
 #: kernel rounds q, k and v to bf16 after the fp32 projection, then p and o:
@@ -76,6 +95,15 @@ def within(errs: Dict[str, float], bounds: Dict[str, float]) -> bool:
     return all(errs[key] <= bound for key, bound in bounds.items())
 
 
+def flash_bwd_errors(grads, ref_grads) -> Dict[str, Dict[str, float]]:
+    """`attn_errors` of each of (dq, dk, dv) against its reference."""
+    return {name: attn_errors(g, r) for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+
+
+def within_bwd(errs: Dict[str, Dict[str, float]]) -> bool:
+    return all(within(e, FLASH_BWD_BOUNDS) for e in errs.values())
+
+
 def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
     """A kernel operand: bf16, unit stride over its last dim, 16-byte rows."""
     if t.dtype != torch.bfloat16:
@@ -84,7 +112,28 @@ def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{name} kernel needs {what} with unit last stride and 16-byte rows")
 
 
-# ------------------------------------------------------ B1 flash attention
+def _on_device(kernel, plain, t: torch.Tensor, *args):
+    """`kernel(*args)` for a CUDA tensor `t`, `plain(*args)` for a CPU one."""
+    if t.device.type == "cuda":
+        return kernel(*args)
+    if t.device.type == "cpu":
+        return plain(*args)
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def _recompute_grads(plain, inputs, needs_grad, grad_out):
+    """Gradients of `plain(*inputs)` by autograd through the plain version in
+    fp32 (autocast off), for the inputs that need one; None elsewhere."""
+    with torch.enable_grad(), torch.autocast(grad_out.device.type, enabled=False):
+        leaves = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs_grad)]
+        out = plain(*leaves)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+# ------------------------------------------- B1 flash attention, B8 backward
 
 
 def flash_attention_plain(
@@ -101,30 +150,155 @@ def flash_attention_plain(
     return o.to(q.dtype), lse
 
 
-def _flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, n, h, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS or k.shape != q.shape or v.shape != q.shape:
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(do ∘ o) in fp32, as a contiguous (B, H, N) tensor."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fp32 formulas of the flash backward (`_flash_core_bwd`): with
+    p = exp(q·kᵀ·scale − lse), Δ = rowsum(do ∘ o), dp = do·vᵀ and
+    ds = p ∘ (dp − Δ)·scale, returns dq = ds·k, dk = dsᵀ·q and dv = pᵀ·do,
+    all fp32, over (B, N, H, ·) with q/k possibly wider than v."""
+    qf, kf, dof = q.float(), k.float(), do.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse.float()[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - flash_delta(o, do)[..., None]) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf), torch.einsum("bhqk,bqhd->bkhd", ds, qf), dv)
+
+
+def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[int, int]:
+    """Check q/k/v for B1 and B8: (B, N, H, DQK) q and k, (B, N, H, DV) v, all
+    bf16 with 16-byte rows. Returns (DQK, DV)."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if (dv not in FLASH_V_DIMS or dqk > FLASH_MAX_QK or dqk % 8 or k.shape != q.shape
+            or v.shape[:3] != q.shape[:3]):
         raise ValueError(
-            f"flash kernel takes equal (B, N, H, D) q/k/v with D in "
-            f"{SUPPORTED_HEAD_DIMS}; got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"flash kernels take (B, N, H, DQK) q/k with DQK ≤ {FLASH_MAX_QK} a multiple of 8 "
+            f"and (B, N, H, DV) v with DV in {FLASH_V_DIMS}; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_rows("flash", t, name)
-        if t.stride(2) != d:
-            raise ValueError(f"flash kernel needs {name} with head stride D")
-    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    return dqk, dv
+
+
+def _strides(*ts: torch.Tensor):
+    """The (batch, token, head) strides of each (B, N, H, ·) tensor."""
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def _flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, n, h, _ = q.shape
+    dqk, dv = _flash_operands(q, k, v)
+    o = torch.empty((b, n, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_attn.cu", "flash_attn_fwd", "pppppiiiiiiiiiif")
+    fn = _build.bind("flash_attn.cu", "flash_attn_fwd", "pppppiiiiiiiiiiiiiif")
     _build.LAUNCHES["flash_attention"] += 1
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, n, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(scale), _build.stream_of(q),
+        b, n, h, dqk, dv, *_strides(q, k, v), float(scale), _build.stream_of(q),
     )
     _build.check(err, "flash_attn_fwd")
     return o, lse
+
+
+def _flash_bwd_args(q, k, v, do, lse, delta):
+    """Checked operands of B8a/B8b: (B, N, H, DV) bf16 contiguous do and
+    (B, H, N) fp32 contiguous lse and Δ; returns the sizes, strides and
+    pointers the C entries take."""
+    b, n, h, _ = q.shape
+    dqk, dv = _flash_operands(q, k, v)
+    if (do.dtype != torch.bfloat16 or not do.is_contiguous() or do.shape != v.shape
+            or lse.shape != (b, h, n) or delta.shape != (b, h, n)):
+        raise ValueError("flash backward takes contiguous bf16 do shaped as v and "
+                         "contiguous (B, H, N) fp32 lse and delta")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash backward needs a contiguous fp32 {name}")
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    return ptrs, (b, n, h, dqk, dv, *_strides(q, k, v))
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
+    """B8a: dq, a contiguous (B, N, H, DQK) bf16 tensor."""
+    ptrs, sizes = _flash_bwd_args(q, k, v, do, lse, delta)
+    b, n, h, dqk = sizes[:4]
+    dq = torch.empty((b, n, h, dqk), dtype=torch.bfloat16, device=q.device)
+    fn = _build.bind("flash_attn_bwd.cu", "flash_attn_bwd_dq", "pppppppiiiiiiiiiiiiiif")
+    _build.LAUNCHES["flash_attention_bwd_dq"] += 1
+    err = fn(*ptrs, dq.data_ptr(), *sizes, float(scale), _build.stream_of(q))
+    _build.check(err, "flash_attn_bwd_dq")
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B8b: (dk, dv), contiguous (B, N, H, DQK) and (B, N, H, DV) bf16."""
+    ptrs, sizes = _flash_bwd_args(q, k, v, do, lse, delta)
+    b, n, h, dqk, dv_w = sizes[:5]
+    dk = torch.empty((b, n, h, dqk), dtype=torch.bfloat16, device=q.device)
+    dv = torch.empty((b, n, h, dv_w), dtype=torch.bfloat16, device=q.device)
+    fn = _build.bind("flash_attn_bwd.cu", "flash_attn_bwd_dkv", "ppppppppiiiiiiiiiiiiiif")
+    _build.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes, float(scale), _build.stream_of(q))
+    _build.check(err, "flash_attn_bwd_dkv")
+    return dk, dv
+
+
+def _flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) by B8a and B8b, with Δ = rowsum(do ∘ o) a torch op."""
+    do = do.to(torch.bfloat16).contiguous()
+    args = (q, k, v, do, lse.contiguous(), flash_delta(o, do), scale)
+    return (_flash_bwd_dq_cuda(*args), *_flash_bwd_dkv_cuda(*args))
+
+
+def _pad_width(t: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """Zero columns up to a multiple of `multiple` (16-byte bf16 rows)."""
+    pad = -t.shape[-1] % multiple
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
+def _flash_forward(q, k, v, scale):
+    return _on_device(lambda: _flash_attention_cuda(_pad_width(q), _pad_width(k), v, scale),
+                      lambda: flash_attention_plain(q, k, v, scale), q)
+
+
+def _flash_backward(q, k, v, o, lse, do, scale):
+    """(dq, dk, dv) in q's, k's and v's dtypes: B8a/B8b on CUDA, the plain
+    backward on the CPU."""
+    if q.device.type == "cuda":
+        dqk = q.shape[-1]
+        dq, dk, dv = _flash_attention_bwd_cuda(_pad_width(q), _pad_width(k), v, o, lse, do, scale)
+        dq, dk = dq[..., :dqk], dk[..., :dqk]
+    else:
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B1 forward (saves o and lse); B8a/B8b backward (`_flash_core_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _flash_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, o, lse, do, ctx.scale), None)
 
 
 def flash_attention(
@@ -134,17 +308,14 @@ def flash_attention(
     scale: Optional[float] = None,
     return_lse: bool = False,
 ):
-    """Softmax(q·kᵀ·scale)·v over (B, N, H, D); `scale` defaults to D**-0.5.
+    """Softmax(q·kᵀ·scale)·v over (B, N, H, ·); `scale` defaults to
+    DQK**-0.5. q/k may be wider than v; the output takes v's width.
 
-    A ragged N (4097 = CLS + 64²) needs no padding: the kernel masks keys at
-    or beyond N. Returns o, or (o, lse) with `return_lse`."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if q.device.type == "cuda":
-        o, lse = _flash_attention_cuda(q, k, v, scale)
-    elif q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, scale)
-    else:
-        raise ValueError(f"unsupported device {q.device}")
+    A ragged N (4097 = CLS + 64²) needs no padding: the kernels mask keys at
+    or beyond N. Differentiable: the backward runs B8a/B8b on the card.
+    Returns o, or (o, lse) with `return_lse` (lse carries no gradient)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    o, lse = _FlashAttention.apply(q, k, v, scale)
     return (o, lse) if return_lse else o
 
 
@@ -216,12 +387,25 @@ def window_qkv_attention(
     the reference); w/b: the qkv projection as (C, 3C) and (3C,) (b may be
     None); rel_pos_h/w: gathered (side, side, hd) tables (`gather_rel_pos`).
     Returns (NW, N, C), head outputs concatenated, ready for the output
-    projection."""
-    if x.device.type == "cuda":
-        return _window_qkv_attention_cuda(x, w, b, rel_pos_h, rel_pos_w, num_heads)
-    if x.device.type == "cpu":
-        return window_qkv_attention_plain(x, w, b, rel_pos_h, rel_pos_w, num_heads)
-    raise ValueError(f"unsupported device {x.device}")
+    projection. Differentiable in x, w, b and the tables."""
+    return _WindowQkvAttention.apply(x, w, b, rel_pos_h, rel_pos_w, num_heads)
+
+
+class _WindowQkvAttention(torch.autograd.Function):
+    """B5 forward; backward by recompute through `window_qkv_attention_plain`
+    (`_win_qkv_core_bwd`: the VJP of `_win_qkv_ref`)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, rel_pos_h, rel_pos_w, num_heads):
+        ctx.save_for_backward(x, w, b, rel_pos_h, rel_pos_w)
+        ctx.num_heads = num_heads
+        args = (x, w, b, rel_pos_h, rel_pos_w, num_heads)
+        return _on_device(_window_qkv_attention_cuda, window_qkv_attention_plain, x, *args)
+
+    @staticmethod
+    def backward(ctx, do):
+        plain = lambda *t: window_qkv_attention_plain(*t, ctx.num_heads)
+        return (*_recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:5], do), None)
 
 
 # ------------------------------------------- rel-pos bias terms and routing
@@ -277,11 +461,10 @@ def flash_attention_relpos(
 
     - N ≤ 256: whole-window attention (B7) on the lane-augmented q′/k′;
     - grids that `direct_bias_fits`: the direct-bias flash kernel (B6);
-    - other (ragged) grids: flash attention on q′/k′, which needs B1 with q/k
-      wider than v. On a CPU tensor its plain version runs; the CUDA kernel
-      of B1 takes D = 64 and equal shapes only (ROADMAP C5).
+    - other (ragged) grids: flash attention (B1) on q′/k′, which are
+      D + gh + gw wide, with scale 1.
 
-    Returns token-major (B, N, H, D)."""
+    Returns token-major (B, N, H, D). Differentiable on every route."""
     b, n, h, d = q.shape
     if n != grid_hw[0] * grid_hw[1]:
         raise ValueError(f"{n} tokens do not form a {grid_hw} grid")
@@ -290,12 +473,7 @@ def flash_attention_relpos(
         return window_attention(*relpos_aug(q, k, bh, bw, grid_hw), v)
     if direct_bias_fits(grid_hw):
         return relpos_flash_attention(q, k, v, bh, bw)
-    if q.device.type == "cuda":
-        raise NotImplementedError(
-            f"rel-pos attention on a ragged {grid_hw} grid needs the flash kernel with "
-            "q/k wider than v, which the port's B1 does not take yet (ROADMAP C5)"
-        )
-    return flash_attention_plain(*relpos_aug(q, k, bh, bw, grid_hw), v, scale=1.0)[0]
+    return flash_attention(*relpos_aug(q, k, bh, bw, grid_hw), v, scale=1.0)
 
 
 # ------------------------------------------ B6 direct-bias flash attention
@@ -346,12 +524,31 @@ def relpos_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bh: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
     """softmax(q·kᵀ·scale + bias)·v over token-major (B, N, H, D) with
     bias[q, r·gw + j] = Bh[q, r] + Bw[q, j] (`rel_pos_bias`), never forming
-    the N² bias. q/k/v may be strided views of one qkv tensor."""
-    if q.device.type == "cuda":
-        return _relpos_flash_attention_cuda(q, k, v, bh, bw)
-    if q.device.type == "cpu":
-        return relpos_attention_plain(q, k, v, bh, bw)
-    raise ValueError(f"unsupported device {q.device}")
+    the N² bias. q/k/v may be strided views of one qkv tensor.
+    Differentiable in q, k, v, Bh and Bw."""
+    return _RelposFlashAttention.apply(q, k, v, bh, bw)
+
+
+class _RelposFlashAttention(torch.autograd.Function):
+    """B6 forward; backward through the lane-augmented formulation
+    (`_relpos_core_bwd`): q′/k′ from `relpos_aug`, a wide B1 forward for o′
+    and lse, B8a/B8b, then dq′ sliced into dq·scale, dBh and dBw and dk′
+    into dk (k′'s indicator lanes are constants)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bh, bw):
+        ctx.save_for_backward(q, k, v, bh, bw)
+        return _on_device(_relpos_flash_attention_cuda, relpos_attention_plain, q, q, k, v, bh, bw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bh, bw = ctx.saved_tensors
+        d, gh = q.shape[-1], bh.shape[-1]
+        q_aug, k_aug = relpos_aug(q, k, bh, bw, (gh, bw.shape[-1]))
+        o_aug, lse = _flash_forward(q_aug, k_aug, v, 1.0)
+        dqa, dka, dv = _flash_backward(q_aug, k_aug, v, o_aug, lse, do, 1.0)
+        return (dqa[..., :d] * d**-0.5, dka[..., :d], dv, dqa[..., d:d + gh].to(bh.dtype),
+                dqa[..., d + gh:].to(bw.dtype))
 
 
 # ---------------------------------------------- B7 whole-window attention
@@ -393,9 +590,20 @@ def _window_attention_cuda(q, k, v) -> torch.Tensor:
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q·kᵀ)·v per batch element over N ≤ 256 tokens, token-major
     (B, N, H, ·), with no scale (the caller folds it into q). q/k may be
-    wider than v; the output takes v's width."""
-    if q.device.type == "cuda":
-        return _window_attention_cuda(q, k, v)
-    if q.device.type == "cpu":
-        return window_attention_plain(q, k, v)
-    raise ValueError(f"unsupported device {q.device}")
+    wider than v; the output takes v's width. Differentiable."""
+    return _WindowAttention.apply(q, k, v)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """B7 forward; backward by recompute through `window_attention_plain`
+    (`_win_core_bwd`, an XLA recompute in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _on_device(_window_attention_cuda, window_attention_plain, q, q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return _recompute_grads(window_attention_plain, ctx.saved_tensors,
+                                ctx.needs_input_grad, do)

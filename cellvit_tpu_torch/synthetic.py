@@ -1,14 +1,21 @@
-"""Synthetic workload of the device stage: H&E-like blob tiles (the JAX
-package's `bench.py:119-128`) and probe weights that make a randomly
-initialised CellViT's nucleus and HV maps follow those tiles, so that the
-postprocessing has real nuclei to segment."""
+"""Synthetic workload: H&E-like blob tiles (the JAX package's
+`bench.py:119-128`), training batches with HoVer-Net targets built from
+them, and probe weights that make a randomly initialised CellViT's nucleus
+and HV maps follow those tiles, so that the postprocessing has real nuclei
+to segment."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from scipy import ndimage
+
+from cellvit_tpu_torch.data.labels import gen_instance_hv_map
+
+#: tissue names of `training_batch`, mapped to class ids (19 tissue classes)
+TISSUE_TYPES = {f"tissue_{i:02d}": i for i in range(19)}
 
 
 def blob_tiles(batch: int = 8, tile: int = 1024, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
@@ -28,6 +35,57 @@ def blob_tiles(batch: int = 8, tile: int = 1024, seed: int = 0) -> Tuple[np.ndar
             imgs[b, y0:y1, x0:x1][m] = rng.uniform(0.1, 0.4)
             masks[b, y0:y1, x0:x1] |= m
     return imgs, masks
+
+
+def training_batch(batch: int = 4, tile: int = 1024, seed: int = 0,
+                   num_nuclei_classes: int = 6) -> Dict:
+    """A loader batch (`data.loader.default_collate` keys) of `blob_tiles`:
+    images normalised with mean = std = 0.5; instances the 4-connected
+    components of the disc masks; HV maps from `gen_instance_hv_map`; a
+    seeded nucleus type in 1..num_nuclei_classes−1 per instance and a seeded
+    tissue per tile."""
+    imgs, masks = blob_tiles(batch, tile, seed)
+    rng = np.random.default_rng(seed + 1)
+    inst = np.zeros(masks.shape, np.int32)
+    types = np.zeros(masks.shape, np.int32)
+    hv = np.zeros(masks.shape + (2,), np.float32)
+    for b in range(batch):
+        inst[b], n = ndimage.label(masks[b])
+        lut = np.concatenate([[0], rng.integers(1, num_nuclei_classes, n)]).astype(np.int32)
+        types[b] = lut[inst[b]]
+        hv[b] = gen_instance_hv_map(inst[b])
+    names = list(TISSUE_TYPES)
+    return {
+        "image": (imgs - 0.5) / 0.5,
+        "masks/instance_map": inst,
+        "masks/nuclei_binary_map": (inst > 0).astype(np.int32),
+        "masks/nuclei_type_map": types,
+        "masks/hv_map": hv,
+        "tissue_types": [names[i] for i in rng.integers(0, len(names), batch)],
+        "names": [f"blob_{seed}_{b}" for b in range(batch)],
+    }
+
+
+def cellvit256_trainer(seed: int = 2, device: str = "cuda"):
+    """The training workload: a full-width CellViT-256 (random weights from
+    `seed` plus the probe weights, drop-path 0.1, no dropout) in a
+    `CellViTTrainer` with the reference's default losses, AdamW as
+    `configs/examples/train_cellvit.yaml` sets it (lr 3e-4, betas 0.85/0.95,
+    weight decay 1e-4, exponential schedule with gamma 0.85) and bf16
+    autocast, on `device`."""
+    from cellvit_tpu_torch.models.cellvit import CellViT256
+    from cellvit_tpu_torch.train.optim import make_lr_schedule, retrieve_optimizer
+    from cellvit_tpu_torch.train.trainer import CellViTTrainer, default_loss_fn_dict
+
+    torch.manual_seed(seed)
+    model = CellViT256(num_nuclei_classes=6, num_tissue_classes=19, drop_rate=0.0,
+                       attn_drop_rate=0.0, drop_path_rate=0.1)
+    set_probe_weights(model)
+    schedule = make_lr_schedule("exponential", 3e-4, epochs=130, steps_per_epoch=100, gamma=0.85)
+    tx = retrieve_optimizer("AdamW", {"lr": 3e-4, "betas": (0.85, 0.95), "weight_decay": 1e-4},
+                            schedule)
+    return CellViTTrainer(model, default_loss_fn_dict(), tx, num_classes=6,
+                          tissue_types=TISSUE_TYPES, device=device, mixed_precision=True)
 
 
 def random_sam_h(seed: int, device: str = "cuda"):

@@ -21,10 +21,25 @@
    so the nucleus and HV maps follow the tiles). It checks each path's
    kernel launch counts, its outputs, and one tile's instance map against
    the port's CPU path on the same forward outputs.
+   B1 is also held, widened, on q′/k′ wider than v: a ragged 20×20 SAM-H
+   grid through `flash_attention_relpos` (q′/k′ 120 wide, v 80) and the
+   rel-pos backward's (1, 4096, 16, 208) against v of width 80. The flash
+   backward B8a (dq) and B8b (dk/dv) are held against
+   `flash_attention_bwd_plain` at the training step's (4, 4097, 6, 64) and
+   at SAM-H's rel-pos backward shape, and the gradient of every
+   differentiable kernel op (B1, B6, B7, B5) against autograd through its
+   plain version.
 5. Drives one 224×256 tile through the SAM-H model, whose global blocks then
    take the whole-window kernel, and holds its outputs against the same
    forward with every SAM attention on its plain version.
-6. Prints a JSON line of the ported kernels, then the card's name and power
+6. Drives the training path: `CellViTTrainer` on a full-width CellViT-256,
+   4 × 1024² synthetic tiles with HoVer-Net targets, bf16 autocast, AdamW
+   (lr 3e-4, betas 0.85/0.95, wd 1e-4, exponential schedule), drop-path
+   0.1: one warm-up step, timed unfrozen steps and a frozen step, then a
+   validation epoch (bPQ through B2-B4). It checks the launches per step,
+   finite and falling losses, and one step's gradients against the same
+   step on the plain attention.
+7. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero, without the last line, when no GPU is present or any phase
@@ -50,6 +65,14 @@ TIMED_BATCHES = 2
 SMALL_TILE = (224, 256)  # its SAM global grid, 14×16, takes the whole-window kernel
 #: relative L2 of the 224×256 tile's outputs, kernels against plain versions
 PATH_L2 = 5e-2
+TRAIN_BATCH, TIMED_STEPS = 4, 3
+#: relative L2, per parameter group, of one training step's gradients with
+#: the flash kernels (B1 forward, B8 backward) against the same step with
+#: the plain attention, both under bf16 autocast. Each attention output and
+#: its input gradients differ by bf16 rounding (≈3e-3 of their size, within
+#: FLASH_BOUNDS and FLASH_BWD_BOUNDS), and 12 residual blocks carry that into
+#: the parameter gradients as they carry it into the outputs (PATH_L2).
+GRAD_L2 = 5e-2
 
 
 def require(ok: bool, what: str) -> None:
@@ -204,6 +227,192 @@ def drive(name: str, infer, imgs: np.ndarray, per_batch, card: str, embed: int):
             f"{name}: non-finite outputs")
     require(all(0 < p < 4096 for p in passes), f"{name}: watershed hit its pass cap")
     tile_check(name, infer, imgs)
+    return launches
+
+
+def flash_bwd_phase(b: int, n: int, h: int, dqk: int, dv: int, scale: float, gen, dev):
+    """B8a/B8b on random q, k, v, do against `flash_attention_bwd_plain`;
+    returns (inputs, max abs errors of (dq, dk, dv))."""
+    from cellvit_tpu_torch.ops import attention
+
+    r = lambda *shape, s=1.0: (torch.randn(shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+    if dqk == dv:  # strided out of one qkv tensor, as the encoder passes them
+        q, k, v = r(b, n, 3, h, dqk).unbind(2)
+    else:
+        q, k, v = r(b, n, h, dqk, s=dqk**-0.25), r(b, n, h, dqk, s=dqk**-0.25), r(b, n, h, dv)
+    o, lse = attention.flash_attention(q, k, v, scale=scale, return_lse=True)
+    do = r(b, n, h, dv)
+    args = (q, k, v, do, lse, attention.flash_delta(o, do), scale)
+    grads = (attention._flash_bwd_dq_cuda(*args), *attention._flash_bwd_dkv_cuda(*args))
+    ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    errs = attention.flash_bwd_errors(grads, ref)
+    max_errs = [(a.float() - r_.float()).abs().max().item() for a, r_ in zip(grads, ref)]
+    print(f"B8 flash backward ({b}, {n}, {h}, q/k {dqk}, v {dv}): max_abs_err dq/dk/dv "
+          + ", ".join(f"{e:.3e}" for e in max_errs) + "; errors relative to each gradient "
+          + "; ".join(f"{g}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                      for g, e in errs.items())
+          + f" (bounds {attention.FLASH_BWD_BOUNDS})")
+    require(attention.within_bwd(errs), "flash backward kernels disagree")
+    return (q, k, v, o, lse, do, args), max_errs
+
+
+def flash_bwd_bounds(b: int, n: int, h: int, dqk: int, dv: int):
+    """(B8a, B8b) bounds: each reads q, k, v, do (bf16), lse and Δ (fp32) once
+    and writes its gradients once; B8a runs q·kᵀ, do·vᵀ and ds·k, B8b q·kᵀ,
+    pᵀ·do, do·vᵀ and dsᵀ·q."""
+    ins = 2 * b * n * h * (2 * dqk + 2 * dv) + 2 * 4 * b * h * n
+    pairs = b * h * n * n
+    return (bound_ms(ins + 2 * b * n * h * dqk, 2.0 * pairs * (2 * dqk + dv)),
+            bound_ms(ins + 2 * b * n * h * (dqk + dv), 2.0 * pairs * (2 * dqk + 2 * dv)))
+
+
+def grad_check(name: str, fn, plain, inputs, gen) -> None:
+    """Gradients of `fn` (kernel forward, kernel or recompute backward) against
+    autograd through `plain` on the same inputs and output gradient."""
+    from cellvit_tpu_torch.ops import attention
+
+    def grads(f):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = f(*leaves)
+        do = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(9),
+                         device=out.device).to(out.dtype)
+        return torch.autograd.grad(out, leaves, do)
+
+    got, want = grads(fn), grads(plain)
+    for i, (a, r) in enumerate(zip(got, want)):
+        errs = attention.attn_errors(a, r)
+        print(f"  {name} grad of input {i} {tuple(a.shape)}: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        require(a.shape == r.shape and attention.within(errs, attention.FLASH_BWD_BOUNDS),
+                f"{name}: gradient of input {i} disagrees with its plain version")
+
+
+def plain_flash_attention(q, k, v):
+    """The encoder's attention on the plain version, in fp32 whatever the
+    autocast, checkpointed so that autograd keeps one block's N² logits at
+    a time."""
+    from torch.utils.checkpoint import checkpoint
+
+    from cellvit_tpu_torch.ops import attention
+
+    def run(q, k, v):
+        with torch.autocast("cuda", enabled=False):
+            return attention.flash_attention_plain(q, k, v)[0]
+
+    return checkpoint(run, q, k, v, use_reentrant=False)
+
+
+def group_grads(trainer) -> dict:
+    groups = {"encoder": [], "skip decoders": [], "towers": []}
+    for name, p in zip(trainer.param_names, trainer.params):
+        key = ("encoder" if name.startswith("encoder.") else
+               "skip decoders" if name.startswith("decoder") else "towers")
+        groups[key].append(p.grad.float().flatten())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def train_grad_check(trainer, batch) -> None:
+    """One unfrozen step's parameter gradients, flash kernels against the
+    plain attention, on the same batch and drop-path masks. Restores the
+    BatchNorm statistics that the two forwards move."""
+    from cellvit_tpu_torch.models import vit
+
+    buffers = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    trainer.generator.manual_seed(5)
+    trainer.loss_and_grads(batch, False)
+    got = group_grads(trainer)
+    trainer.generator.manual_seed(5)
+    kernel_fn = vit.flash_attention
+    vit.flash_attention = plain_flash_attention
+    try:
+        trainer.loss_and_grads(batch, False)
+    finally:
+        vit.flash_attention = kernel_fn
+    want = group_grads(trainer)
+    for p in trainer.params:
+        p.grad = None
+    with torch.no_grad():
+        for k, v in trainer.model.named_buffers():
+            v.copy_(buffers[k])
+    for key in got:
+        rel = ((got[key] - want[key]).norm() / want[key].norm()).item()
+        print(f"  training step gradients, {key} ({want[key].numel()} values): relative L2 "
+              f"kernels vs plain attention {rel:.3e} (bound {GRAD_L2:g}), "
+              f"|g| {want[key].norm().item():.3e}")
+        require(torch.isfinite(got[key]).all().item() and rel <= GRAD_L2,
+                f"training step: {key} gradients disagree with the plain attention")
+
+
+def drive_training(card: str):
+    """The training path on a full-width CellViT-256 (see the module
+    docstring). Returns the launch counts of the timed steps, the frozen
+    step and the validation epoch."""
+    from cellvit_tpu_torch import _build
+    from cellvit_tpu_torch.synthetic import TISSUE_TYPES, cellvit256_trainer, training_batch
+    from cellvit_tpu_torch.train.trainer import prepare_batch
+
+    t0 = time.perf_counter()
+    raw = training_batch(TRAIN_BATCH, TILE, seed=2)
+    print(f"training: {TRAIN_BATCH} synthetic tiles with targets built in "
+          f"{time.perf_counter() - t0:.2f} s; instances per tile "
+          f"{[int(m.max()) for m in raw['masks/instance_map']]}")
+    trainer = cellvit256_trainer(seed=2, device="cuda")
+    batch = trainer.to_device(prepare_batch(raw, TISSUE_TYPES))
+    train_grad_check(trainer, batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train_step(batch, False)
+    torch.cuda.synchronize()
+    print(f"training: warm-up step {time.perf_counter() - t0:.3f} s")
+    _build.reset_launches()
+    per_step = {"flash_attention": 12, "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12}
+    losses, step_ms, wall_ms = [], [], []
+    for i in range(TIMED_STEPS + 1):
+        frozen = i == TIMED_STEPS
+        before = dict(_build.LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = trainer.train_step(batch, freeze_encoder=frozen)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        host = trainer._host(metrics)
+        diff = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+        want = {"flash_attention": 12} if frozen else per_step
+        print(f"training step {i} ({'frozen' if frozen else 'unfrozen'} encoder): "
+              f"{start.elapsed_time(end):.2f} ms device events, {wall:.2f} ms wall, "
+              f"loss {host['Total_Loss']:.5f} ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in host.items() if k != "Total_Loss")
+              + f"); launches {diff}")
+        require(diff == want, f"training step {i}: launches {diff}, expected {want}")
+        require(all(np.isfinite(v) for v in host.values()), f"training step {i}: non-finite metrics")
+        if not frozen:
+            losses.append(host["Total_Loss"])
+            step_ms.append(start.elapsed_time(end))
+            wall_ms.append(wall)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training: {TRAIN_BATCH}×{TILE}² CellViT-256 bf16 on {card}: unfrozen step ms "
+          f"{[round(t, 2) for t in step_ms]} (wall {[round(t, 2) for t in wall_ms]}), "
+          f"{TRAIN_BATCH * len(wall_ms) / (sum(wall_ms) / 1e3):.3f} images/s; "
+          f"peak memory allocated {peak:.2f} GiB")
+    require(losses[-1] < losses[0], f"training: losses did not fall over the timed steps: {losses}")
+
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    scalars, bpq = trainer.validation_epoch([raw], epoch=0)
+    diff = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+    want = {"flash_attention": 12, "connected_components": 2, "flood": 1, "propagate_min": 1}
+    print(f"validation epoch (1 batch, {time.perf_counter() - t0:.3f} s): bPQ {bpq:.4f} against "
+          f"the synthetic instance maps, loss {scalars['Total_Loss']:.5f}, dice "
+          f"{scalars['dice']:.4f}; launches {diff}")
+    require(diff == want, f"validation: launches {diff}, expected {want}")
+    require(np.isfinite(scalars["Total_Loss"]) and 0.0 <= bpq <= 1.0, "validation: bad metrics")
+    launches = dict(_build.LAUNCHES)
+    del trainer, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -386,6 +595,104 @@ def main() -> int:
                        2.0 * heads * n * n * (qa.shape[-1] + hd)),
     )
     del qkv, q, k, v, rh, rw, qa, ka, o, po, qt, kt, vt
+
+    # ---- B1 widened: q′/k′ wider than v. A ragged 20×20 SAM-H grid fits
+    # neither B6 nor B7 and takes B1 on q′/k′ 80 + 20 + 20 wide, scale 1; the
+    # rel-pos backward runs B1 on SAM-H's q′/k′ 80 + 64 + 64 wide.
+    gen = torch.Generator(device=dev).manual_seed(3)
+    side = 20
+    qkv = torch.randn((1, side * side, 3, heads, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    rh, rw = ((torch.randn((side, side, hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+              for _ in range(2))
+    before = _build.LAUNCHES["flash_attention"]
+    o = attention.flash_attention_relpos(q, k, v, rh, rw, (side, side))
+    require(_build.LAUNCHES["flash_attention"] == before + 1, "the ragged grid did not take B1")
+    qa, ka = attention.relpos_aug(q, k, *attention.rel_pos_bias(q, rh, rw, (side, side)), (side, side))
+    wide = [("ragged 20×20 grid", qa, ka, v, o)]
+    qw = (torch.randn((1, 4096, heads, 208), generator=gen, device=dev) * 208**-0.25).to(torch.bfloat16)
+    kw = (torch.randn((1, 4096, heads, 208), generator=gen, device=dev) * 208**-0.25).to(torch.bfloat16)
+    vw = torch.randn((1, 4096, heads, hd), generator=gen, device=dev).to(torch.bfloat16)
+    wide.append(("rel-pos backward width", qw, kw, vw, None))
+    for label, qx, kx, vx, routed in wide:
+        ox, lse = attention.flash_attention(qx, kx, vx, scale=1.0, return_lse=True)
+        po, plse = attention.flash_attention_plain(qx, kx, vx, scale=1.0)
+        errs = attention.flash_errors(ox, lse, po, plse)
+        if routed is not None:
+            require(torch.equal(routed, ox), f"B1 widened, {label}: the routed op differs")
+        b_, n_, h_, d_ = qx.shape
+        bnd = bound_ms(2 * (2 * qx.numel() + 2 * vx.numel()) + 4 * b_ * h_ * n_,
+                       2.0 * b_ * h_ * n_ * n_ * (d_ + vx.shape[-1]))
+        print(f"B1 widened, {label}: q/k {tuple(qx.shape)}, v {tuple(vx.shape)}: max_abs_err "
+              f"{(ox.float() - po.float()).abs().max().item():.3e}; errors relative to |o| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; kernel_ms {time_ms(lambda: attention.flash_attention(qx, kx, vx, scale=1.0), 20):.4f}"
+              f" plain_ms {time_ms(lambda: attention.flash_attention_plain(qx, kx, vx, 1.0), 3):.4f}"
+              f" bound_ms {bnd[0]:.4f} ({bnd[1]})")
+        require(attention.within(errs, attention.FLASH_BOUNDS), f"B1 widened, {label}: disagrees")
+    del qkv, q, k, v, rh, rw, o, qa, ka, qw, kw, vw, wide, ox, lse, po, plse
+
+    # ---- B8a/B8b flash backward at the training step's shape and at SAM-H's
+    # rel-pos backward shape
+    tb, t_heads = TRAIN_BATCH, 6
+    (q, k, v, o, lse, do, args), max_errs = flash_bwd_phase(tb, n_tok, t_heads, 64, 64, 64**-0.5, gen, dev)
+    plain_bwd_ms = time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, 64**-0.5), 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+    bnd_dq, bnd_dkv = flash_bwd_bounds(tb, n_tok, t_heads, 64, 64)
+    for name, fn, err, bnd in (
+            ("flash_attention_bwd_dq", lambda: attention._flash_bwd_dq_cuda(*args), max_errs[0], bnd_dq),
+            ("flash_attention_bwd_dkv", lambda: attention._flash_bwd_dkv_cuda(*args),
+             max(max_errs[1:]), bnd_dkv)):
+        kernels[name] = dict(
+            route="cuda", source="cellvit_tpu_torch/csrc/flash_attn_bwd.cu",
+            replaces="cellvit_tpu/ops/attention.py:" + ("106" if name.endswith("dq") else "143"),
+            max_abs_err=err, ms=time_ms(fn, 20), plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
+            bound=bnd)
+    print(f"  B8 at ({tb}, {n_tok}, {t_heads}, 64): plain_ms (dq, dk, dv together) {plain_bwd_ms:.4f}, "
+          f"SDPA backward (dq, dk, dv together) {sdpa_bwd_ms:.4f} ms")
+    del q, k, v, o, lse, do, args, qt, kt, vt, out, dot
+    (q, k, v, o, lse, do, args), _ = flash_bwd_phase(1, 4096, heads, 208, hd, 1.0, gen, dev)
+    bnd_dq, bnd_dkv = flash_bwd_bounds(1, 4096, heads, 208, hd)
+    print(f"  B8 at (1, 4096, {heads}, q/k 208, v {hd}): dq kernel_ms "
+          f"{time_ms(lambda: attention._flash_bwd_dq_cuda(*args), 20):.4f} (bound {bnd_dq[0]:.4f}), "
+          f"dk/dv kernel_ms {time_ms(lambda: attention._flash_bwd_dkv_cuda(*args), 20):.4f} "
+          f"(bound {bnd_dkv[0]:.4f})")
+    del q, k, v, o, lse, do, args
+
+    # ---- gradients of every differentiable kernel op against autograd
+    # through its plain version, at the ViT-256 training and SAM-H shapes
+    print("gradients of the kernel ops against their plain versions "
+          f"(bounds {attention.FLASH_BWD_BOUNDS}):")
+    r = lambda *shape, s=1.0: (torch.randn(shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+    grad_check("B1 flash (ViT-256 training)", attention.flash_attention,
+               lambda q, k, v: attention.flash_attention_plain(q, k, v)[0],
+               r(tb, n_tok, 3, t_heads, 64).unbind(2), gen)
+    side = TILE // 16
+    grad_check("B6 rel-pos flash (SAM-H global, batch 2)",
+               lambda q, k, v, rh, rw: attention.flash_attention_relpos(q, k, v, rh, rw, (side, side)),
+               lambda q, k, v, rh, rw: attention.relpos_attention_plain(
+                   q, k, v, *attention.rel_pos_bias(q, rh, rw, (side, side))),
+               (*r(2, side * side, 3, heads, hd).unbind(2), r(side, side, hd, s=0.1),
+                r(side, side, hd, s=0.1)), gen)
+    q, k, v = r(1, gh * gw, 3, heads, hd).unbind(2)
+    rh, rw = r(gh, gh, hd, s=0.1), r(gw, gw, hd, s=0.1)
+    qa, ka = attention.relpos_aug(q, k, *attention.rel_pos_bias(q, rh, rw, (gh, gw)), (gh, gw))
+    grad_check("B7 window (224×256 tile)", attention.window_attention,
+               attention.window_attention_plain, (qa, ka, v), gen)
+    grid = torch.randn((BATCH, side, side, c), generator=gen, device=dev)
+    x = window_partition(grid, win)[0].reshape(-1, win * win, c).to(torch.bfloat16).contiguous()
+    del grid
+    grad_check("B5 window qkv (SAM-H windowed)",
+               lambda *t: attention.window_qkv_attention(*t, heads),
+               lambda *t: attention.window_qkv_attention_plain(*t, heads),
+               (x, r(c, 3 * c, s=c**-0.5), r(3 * c, s=0.1), r(win, win, hd, s=0.1),
+                r(win, win, hd, s=0.1)), gen)
+    del q, k, v, rh, rw, qa, ka, x
+    torch.cuda.empty_cache()
+
     for name, kd in kernels.items():
         print(f"  {name}: kernel_ms {kd['ms']:.4f} plain_ms {kd['plain_ms']:.4f} "
               f"library_ms {kd['library_ms']} bound_ms {kd['bound'][0]:.4f} ({kd['bound'][1]})")
@@ -446,6 +753,11 @@ def main() -> int:
         require(torch.isfinite(a).all().item() and rel <= PATH_L2,
                 f"224×256 tile: {key} disagrees with the plain forward")
     del model, infer, out, ref
+    torch.cuda.empty_cache()
+
+    # ---- main path 3: CellViT-256 training on 4 × 1024² tiles
+    for name, n in drive_training(card).items():
+        launches[name] += n
 
     rows = []
     for name, kd in kernels.items():

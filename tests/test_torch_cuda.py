@@ -132,8 +132,141 @@ def test_window_kernel_matches_plain(cuda, grid_hw, d):
     assert attention.within(errs, attention.WINDOW_BOUNDS), errs
 
 
-def test_ragged_relpos_grid_raises_on_the_card(cuda):
-    q = torch.zeros((1, 400, 2, 80), dtype=torch.bfloat16, device=cuda)
-    r = torch.zeros((20, 20, 80), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
-        attention.flash_attention_relpos(q, q, q, r, r, (20, 20))
+def test_ragged_relpos_grid_takes_the_wide_flash_kernel(cuda):
+    """A 20×20 grid fits neither B6 nor B7: B1 runs on q′/k′ 80 + 20 + 20
+    wide against v of width 80, scale 1."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = _bf16(g, (1, 400, 3, 2, 80), cuda).unbind(2)
+    rh, rw = (_bf16(g, (20, 20, 80), cuda, 0.1) for _ in range(2))
+    bh, bw = attention.rel_pos_bias(q, rh, rw, (20, 20))
+    before = _build.LAUNCHES["flash_attention"]
+    o = attention.flash_attention_relpos(q, k, v, rh, rw, (20, 20))
+    ref = attention.relpos_attention_plain(q, k, v, bh, bw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    errs = attention.attn_errors(o, ref)
+    assert attention.within(errs, attention.RELPOS_BOUNDS), errs
+
+
+def _wide(g, cuda, b, n, h, dqk, dv):
+    """q′/k′ of width dqk whose logits at scale 1 have unit variance, and v."""
+    q = _bf16(g, (b, n, h, dqk), cuda, dqk**-0.25)
+    k = _bf16(g, (b, n, h, dqk), cuda, dqk**-0.25)
+    return q, k, _bf16(g, (b, n, h, dv), cuda)
+
+
+@pytest.mark.parametrize("n,dqk,dv", [(400, 120, 80), (1024, 208, 80), (513, 192, 64),
+                                      (130, 80, 80), (97, 72, 64)])
+def test_wide_flash_kernel_matches_plain(cuda, n, dqk, dv):
+    q, k, v = _wide(torch.Generator(device=cuda).manual_seed(n + dqk), cuda, 1, n, 2, dqk, dv)
+    before = _build.LAUNCHES["flash_attention"]
+    o, lse = attention.flash_attention(q, k, v, scale=1.0, return_lse=True)
+    po, plse = attention.flash_attention_plain(q, k, v, scale=1.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert o.shape == (1, n, 2, dv)
+    errs = attention.flash_errors(o, lse, po, plse)
+    assert attention.within(errs, attention.FLASH_BOUNDS), errs
+
+
+@pytest.mark.parametrize("b,n,h,dqk,dv,scale", [(2, 130, 3, 64, 64, None), (1, 1025, 2, 64, 64, None),
+                                                (1, 400, 2, 120, 80, 1.0),
+                                                (1, 256, 2, 208, 80, 1.0)])
+def test_flash_bwd_kernels_match_plain(cuda, b, n, h, dqk, dv, scale):
+    g = torch.Generator(device=cuda).manual_seed(n + dqk)
+    q, k, v = _wide(g, cuda, b, n, h, dqk, dv)
+    scale = dqk**-0.5 if scale is None else scale
+    do = _bf16(g, (b, n, h, dv), cuda, 0.02)
+    o, lse = attention.flash_attention(q, k, v, scale=scale, return_lse=True)
+    before = dict(_build.LAUNCHES)
+    grads = attention._flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    errs = attention.flash_bwd_errors(grads, ref)
+    assert attention.within_bwd(errs), errs
+
+
+def _grads(fn, inputs, do):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, do)
+
+
+@pytest.mark.parametrize("route", ["flash", "relpos_b6", "relpos_ragged", "window", "window_qkv"])
+def test_autograd_ops_match_plain_gradients(cuda, route):
+    """Each op's gradients on the card against autograd through its plain
+    version on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if route == "flash":
+        q, k, v = _bf16(g, (2, 1025, 3, 2, 64), cuda).unbind(2)
+        inputs = (q, k, v)
+        fn = attention.flash_attention
+        plain = lambda q, k, v: attention.flash_attention_plain(q, k, v)[0]
+    elif route.startswith("relpos"):
+        side = 32 if route == "relpos_b6" else 20
+        q, k, v = _bf16(g, (1, side * side, 3, 2, 80), cuda).unbind(2)
+        rh, rw = (_bf16(g, (side, side, 80), cuda, 0.1) for _ in range(2))
+        inputs = (q, k, v, rh, rw)
+        fn = lambda *t: attention.flash_attention_relpos(*t, (side, side))
+        plain = lambda q, k, v, rh, rw: attention.relpos_attention_plain(
+            q, k, v, *attention.rel_pos_bias(q, rh, rw, (side, side)))
+    elif route == "window":
+        q, k, v = _bf16(g, (2, 224, 3, 2, 80), cuda).unbind(2)
+        rh, rw = _bf16(g, (14, 14, 80), cuda, 0.1), _bf16(g, (16, 16, 80), cuda, 0.1)
+        inputs = attention.relpos_aug(q, k, *attention.rel_pos_bias(q, rh, rw, (14, 16)), (14, 16))
+        inputs = (*inputs, v)
+        fn, plain = attention.window_attention, attention.window_attention_plain
+    else:
+        c, heads = 256, 4
+        x = _windows(g, cuda, 1, 17, 14, c)
+        w, b = _bf16(g, (c, 3 * c), cuda, c**-0.5), _bf16(g, (3 * c,), cuda, 0.1)
+        rh, rw = (_bf16(g, (14, 14, c // heads), cuda, 0.1) for _ in range(2))
+        inputs = (x, w, b, rh, rw)
+        fn = lambda *t: attention.window_qkv_attention(*t, heads)
+        plain = lambda *t: attention.window_qkv_attention_plain(*t, heads)
+    with torch.no_grad():
+        do = torch.randn(fn(*inputs).shape, generator=g, device=cuda).to(torch.bfloat16) * 0.02
+    grads = _grads(fn, inputs, do)
+    ref = _grads(plain, inputs, do)
+    for i, (a, r) in enumerate(zip(grads, ref)):
+        assert a.dtype == inputs[i].dtype and a.shape == inputs[i].shape
+        errs = attention.attn_errors(a, r)
+        assert attention.within(errs, attention.FLASH_BWD_BOUNDS), (i, errs)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_tiny_train_step_on_the_card(cuda, frozen):
+    """A CellViT with 64-wide heads at 512² (1025 tokens, the flash route)
+    takes one bf16 training step on the card: B1 in every block, and B8a/B8b
+    in every block unless the encoder is frozen; finite metrics, and the
+    trainable parameters move."""
+    from cellvit_tpu_torch.models.cellvit import CellViT
+    from cellvit_tpu_torch.synthetic import TISSUE_TYPES, training_batch
+    from cellvit_tpu_torch.train.optim import make_lr_schedule, retrieve_optimizer
+    from cellvit_tpu_torch.train.trainer import (CellViTTrainer, default_loss_fn_dict,
+                                                 prepare_batch)
+
+    torch.manual_seed(0)
+    model = CellViT(6, 19, 128, 4, 2, (1, 2, 3, 4), drop_path_rate=0.1)
+    tx = retrieve_optimizer("AdamW", {"lr": 3e-4, "weight_decay": 1e-4},
+                            make_lr_schedule("exponential", 3e-4, 10, 1, gamma=0.85))
+    trainer = CellViTTrainer(model, default_loss_fn_dict(), tx, 6, TISSUE_TYPES, device="cuda",
+                             mixed_precision=True)
+    batch = trainer.to_device(prepare_batch(training_batch(1, 512, 3), TISSUE_TYPES))
+    before = [p.detach().clone() for p in trainer.params]
+    _build.reset_launches()
+    metrics = trainer._host(trainer.train_step(batch, freeze_encoder=frozen))
+    torch.cuda.synchronize()
+    b8 = 0 if frozen else 4
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        k: v for k, v in {"flash_attention": 4, "flash_attention_bwd_dq": b8,
+                          "flash_attention_bwd_dkv": b8}.items() if v}
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    moved = {n for n, p, p0 in zip(trainer.param_names, trainer.params, before)
+             if not torch.equal(p.detach(), p0)}
+    assert {"encoder.head.weight", "hv_map_decoder.decoder0_header.2.weight"} <= moved
+    frozen_names = {n for n, keep in zip(trainer.param_names, trainer.trainable_frozen) if not keep}
+    assert ("encoder.blocks.0.attn.qkv.weight" in moved) != frozen
+    if frozen:
+        assert not moved & frozen_names
