@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "seg_scan.cu", "win_qkv_attn.cu", "relpos_attn.cu",
-           "win_attn.cu")
+           "win_attn.cu", "rm_small.cu", "watershed.cu", "conv3x3_cm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,11 @@ LAUNCHES: Dict[str, int] = {
     "window_qkv_attention": 0,
     "flash_attention_relpos": 0,
     "window_attention": 0,
+    "watershed": 0,
+    "remove_small_objects": 0,
+    "radix_hist": 0,
+    "rm_mapback": 0,
+    "conv3x3_cm": 0,
 }
 
 

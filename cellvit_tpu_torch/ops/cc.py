@@ -11,7 +11,7 @@ nothing and are discarded.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +99,75 @@ def compact_root_labels(lab: torch.Tensor) -> torch.Tensor:
     new_id = torch.cumsum(is_root, dim=1, dtype=torch.int32)
     idx = (flat.long() - 1).clamp(0, n - 1)
     return torch.where(fg, torch.gather(new_id, 1, idx), 0).reshape(b, h, w)
+
+
+def _wrap_ids(labels: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, H, W) ids → (B, H·W) int64, a negative id counted from the end
+    (JAX's index normalisation)."""
+    ids = labels.reshape(labels.shape[0], -1).long()
+    return torch.where(ids < 0, ids + n, ids)
+
+
+def component_sizes(labels: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(B, H, W) labels → (B, num_segments) int32 pixel count per id (index
+    0 = background). As JAX's scatter-add, an id outside [0, num_segments)
+    after the wrap of negative ids is dropped."""
+    ids = _wrap_ids(labels, num_segments)
+    ok = (ids >= 0) & (ids < num_segments)
+    sizes = torch.zeros((labels.shape[0], num_segments), dtype=torch.int32, device=labels.device)
+    return sizes.scatter_add_(1, torch.where(ok, ids, 0), ok.to(torch.int32))
+
+
+def remove_small_objects(labels: torch.Tensor, min_size: int, num_segments: int) -> torch.Tensor:
+    """Zero components smaller than `min_size` (skimage semantics), by a
+    size scatter and a gather; the gather clamps ids, as JAX's does."""
+    keep = component_sizes(labels, num_segments) >= min_size
+    idx = _wrap_ids(labels, num_segments).clamp(0, num_segments - 1)
+    return torch.where(torch.gather(keep, 1, idx).reshape(labels.shape), labels, 0)
+
+
+def radix_bins(labels: torch.Tensor, hi_bins: int, lo_bins: int) -> torch.Tensor:
+    """Each id's flat radix bin hi·lo_bins + lo, with hi = clip(id ÷ lo_bins,
+    0, hi_bins − 1) and lo = clip(id − hi·lo_bins, 0, lo_bins − 1): ids past
+    the table fall into its top bins, label 0 into bin 0."""
+    hi = torch.div(labels, lo_bins, rounding_mode="floor").clamp(0, hi_bins - 1)
+    lo = (labels - hi * lo_bins).clamp(0, lo_bins - 1)
+    return hi * lo_bins + lo
+
+
+def radix_histogram(labels: torch.Tensor, hi_bins: int = 64, lo_bins: int = 128) -> torch.Tensor:
+    """(B, H, W) ids → (B, hi_bins, lo_bins) fp32 pixel counts per radix bin
+    (the output of the JAX package's `_hist_kernel`)."""
+    b = labels.shape[0]
+    bins = radix_bins(labels, hi_bins, lo_bins).reshape(b, -1).long()
+    hist = torch.zeros((b, hi_bins * lo_bins), dtype=torch.int32, device=labels.device)
+    hist.scatter_add_(1, bins, torch.ones_like(bins, dtype=torch.int32))
+    return hist.float().reshape(b, hi_bins, lo_bins)
+
+
+def radix_keep(labels: torch.Tensor, hist: torch.Tensor, min_size: int,
+               max_labels: Optional[int] = None) -> torch.Tensor:
+    """Keep a pixel's id iff it is > 0 and its bin of the (B, hi_bins,
+    lo_bins) `hist` holds ≥ `min_size` pixels, or the id is ≥ `max_labels`
+    (default hi_bins·lo_bins, the JAX package's `_rm_mapback_kernel`)."""
+    b, hi_bins, lo_bins = hist.shape
+    max_labels = hi_bins * lo_bins if max_labels is None else max_labels
+    bins = radix_bins(labels, hi_bins, lo_bins).reshape(b, -1).long()
+    small = torch.gather((hist < min_size).reshape(b, -1), 1, bins).reshape(labels.shape)
+    keep = (labels > 0) & (~small | (labels >= max_labels))
+    return torch.where(keep, labels, 0).to(torch.int32)
+
+
+def remove_small_objects_bincount(labels: torch.Tensor, min_size: int, max_labels: int = 8192,
+                                  hi_bins: int = 64) -> torch.Tensor:
+    """`remove_small_objects` for compacted labels by a radix histogram of
+    `hi_bins` × max_labels ÷ hi_bins bins. Exact for ids below the table;
+    past it the top bin's count is inflated (a small component may be kept,
+    never one removed in error), and ids ≥ `max_labels` are always kept."""
+    if min_size <= 1:
+        return labels
+    hist = radix_histogram(labels, hi_bins, max_labels // hi_bins)
+    return radix_keep(labels, hist, min_size, max_labels)
 
 
 def remove_small_objects_window(labels: torch.Tensor, min_size: int) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""Fixed-pass connected components, label compaction and border flood
-(port of `cellvit_tpu/ops/cc_pallas.py`: `connected_components_pallas`,
+"""Fixed-pass connected components, label compaction and border flood, the
+size filters and the level-sweep watershed (port of
+`cellvit_tpu/ops/cc_pallas.py`: `connected_components_pallas`,
 `propagate_min_pallas` / `compact_root_labels_pallas`, `flood_pallas` /
-`fill_holes_pallas`).
+`fill_holes_pallas`; `remove_small_objects_pallas`,
+`remove_small_objects_bincount_pallas` and `watershed_pallas` at the end).
 
 Each op runs `n_outer` passes of four directional segmented scans — axis 0
 forward, axis 0 reverse, axis 1 forward, axis 1 reverse, each followed by a
@@ -191,3 +193,140 @@ def fill_holes_cuda(mask: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
     bg = ~mask
     reach = flood_cuda(border_seed(mask), bg, n_outer)
     return mask | (bg & ~reach)
+
+
+# ------------------------------------------- size filters and the watershed
+# (`remove_small_objects_pallas`, `remove_small_objects_bincount_pallas` and
+# `watershed_pallas`; their plain versions live in `ops/cc.py` and
+# `ops/watershed.py`, which import this module)
+
+#: B10 stages a (32 + 2·(min_size − 1))² int32 tile in one block's 227 KB
+RM_SMALL_MAX_MIN_SIZE = 105
+#: B11 keeps an int32 count per radix bin in one block's 227 KB; the fp32
+#: counts are exact below 2²⁴ pixels an image
+MAX_RADIX_BINS = 56 * 1024
+MAX_HIST_PIXELS = 2**24
+
+
+def _check_labels(name: str, t: torch.Tensor) -> torch.Tensor:
+    if t.dim() != 3:
+        raise ValueError(f"{name} must be (B, H, W); got {tuple(t.shape)}")
+    return t.to(torch.int32).contiguous()
+
+
+def remove_small_objects_cuda(labels: torch.Tensor, min_size: int) -> torch.Tensor:
+    """Zero the components of fewer than `min_size` pixels by the windowed
+    same-label count (kernel B10 on CUDA; `cc.remove_small_objects_window`
+    on the CPU). `min_size` ≤ 1 returns `labels` as they are."""
+    from cellvit_tpu_torch.ops import cc
+
+    if min_size <= 1:
+        return labels
+    if _device_kind(labels) == "cpu":
+        return cc.remove_small_objects_window(labels, min_size)
+    if min_size > RM_SMALL_MAX_MIN_SIZE:
+        raise ValueError(f"min_size {min_size} exceeds the window kernel's {RM_SMALL_MAX_MIN_SIZE}; "
+                         "remove_small_objects_bincount_cuda takes any min_size")
+    labels = _check_labels("labels", labels)
+    b, h, w = labels.shape
+    out = torch.empty_like(labels)
+    fn = _build.bind("rm_small.cu", "remove_small_objects", "ppiiii")
+    _build.LAUNCHES["remove_small_objects"] += 1
+    _build.check(fn(labels.data_ptr(), out.data_ptr(), b, h, w, min_size, _build.stream_of(labels)),
+                 "remove_small_objects")
+    return out
+
+
+def _check_bins(hi_bins: int, lo_bins: int) -> None:
+    if hi_bins < 1 or lo_bins < 1 or hi_bins * lo_bins > MAX_RADIX_BINS:
+        raise ValueError(f"{hi_bins} × {lo_bins} radix bins: the kernels take 1 … {MAX_RADIX_BINS}")
+
+
+def radix_histogram_cuda(labels: torch.Tensor, hi_bins: int = 64, lo_bins: int = 128) -> torch.Tensor:
+    """(B, H, W) ids → (B, hi_bins, lo_bins) fp32 pixel counts per radix bin
+    (kernel B11a on CUDA; `cc.radix_histogram` on the CPU)."""
+    from cellvit_tpu_torch.ops import cc
+
+    if _device_kind(labels) == "cpu":
+        return cc.radix_histogram(labels, hi_bins, lo_bins)
+    _check_bins(hi_bins, lo_bins)
+    labels = _check_labels("labels", labels)
+    b, h, w = labels.shape
+    if h * w > MAX_HIST_PIXELS:
+        raise ValueError(f"{h}×{w} pixels: fp32 counts are exact below {MAX_HIST_PIXELS}")
+    hist = torch.empty((b, hi_bins, lo_bins), dtype=torch.float32, device=labels.device)
+    fn = _build.bind("rm_small.cu", "radix_hist", "ppiiii")
+    _build.LAUNCHES["radix_hist"] += 1
+    _build.check(fn(labels.data_ptr(), hist.data_ptr(), b, h * w, hi_bins, lo_bins,
+                    _build.stream_of(labels)), "radix_hist")
+    return hist
+
+
+def radix_keep_cuda(labels: torch.Tensor, hist: torch.Tensor, min_size: int) -> torch.Tensor:
+    """Keep ids > 0 whose radix bin of the (B, hi_bins, lo_bins) `hist`
+    holds ≥ `min_size` pixels, and ids ≥ hi_bins·lo_bins; zero the rest
+    (kernel B11b on CUDA; `cc.radix_keep` on the CPU)."""
+    from cellvit_tpu_torch.ops import cc
+
+    if _device_kind(labels) == "cpu":
+        return cc.radix_keep(labels, hist, min_size)
+    labels = _check_labels("labels", labels)
+    b, h, w = labels.shape
+    if hist.dim() != 3 or hist.shape[0] != b:
+        raise ValueError(f"hist {tuple(hist.shape)} does not match labels {tuple(labels.shape)}")
+    hi_bins, lo_bins = hist.shape[1:]
+    _check_bins(hi_bins, lo_bins)
+    hist = hist.to(torch.float32).contiguous()
+    out = torch.empty_like(labels)
+    fn = _build.bind("rm_small.cu", "rm_mapback", "pppiiiii")
+    _build.LAUNCHES["rm_mapback"] += 1
+    _build.check(fn(labels.data_ptr(), hist.data_ptr(), out.data_ptr(), b, h * w, hi_bins, lo_bins,
+                    min_size, _build.stream_of(labels)), "rm_mapback")
+    return out
+
+
+def remove_small_objects_bincount_cuda(labels: torch.Tensor, min_size: int, hi_bins: int = 64,
+                                       lo_bins: int = 128) -> torch.Tensor:
+    """`remove_small_objects` for compacted labels through a radix histogram
+    (kernels B11a then B11b on CUDA). Exact for ids below hi_bins·lo_bins;
+    past that the top bin's count is inflated and such ids are always kept."""
+    if min_size <= 1:
+        return labels
+    return radix_keep_cuda(labels, radix_histogram_cuda(labels, hi_bins, lo_bins), min_size)
+
+
+def watershed_cuda(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,
+                   levels: int = 64, inner_iters: int = 4, max_final_iters: int = 512,
+                   return_passes: bool = False):
+    """Quantized level-sweep watershed of `watershed_pallas` (kernel B9 on
+    CUDA; `watershed(schedule="sweep")` on the CPU): `levels` × `inner_iters`
+    adoption passes, then stabilization until a pass changes nothing or
+    `max_final_iters` passes, per image. The cap of 512 is the JAX package's
+    default; the main path's frontier flood caps at 4096. Returns int32
+    labels, and with `return_passes` the (B,) stabilization pass counts."""
+    from cellvit_tpu_torch.ops import watershed as ws
+
+    if max_final_iters < 1:
+        raise ValueError(f"max_final_iters must be ≥ 1; got {max_final_iters}")
+    if _device_kind(image) == "cpu":
+        return ws.watershed(image, markers, mask, levels, inner_iters, max_final_iters,
+                            schedule="sweep", return_passes=return_passes)
+    if image.dim() != 3 or markers.shape != image.shape or mask.shape != image.shape:
+        raise ValueError(f"image {tuple(image.shape)}, markers {tuple(markers.shape)} and mask "
+                         f"{tuple(mask.shape)} must be one (B, H, W) shape")
+    mask = mask.to(torch.bool).contiguous()
+    q = ws.quantize(image, mask, levels).contiguous()
+    markers = markers.to(torch.int32).contiguous()
+    b, h, w = image.shape
+    buf0, buf1 = (torch.empty((b, h, w), dtype=torch.int32, device=image.device) for _ in range(2))
+    flags = torch.empty(b * max_final_iters + b, dtype=torch.int32, device=image.device)
+    passes = torch.empty(b, dtype=torch.int32, device=image.device)
+    fn = _build.bind("watershed.cu", "watershed_sweep", "pppppppiiiiii")
+    _build.LAUNCHES["watershed"] += 1
+    _build.check(
+        fn(q.data_ptr(), mask.data_ptr(), markers.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
+           flags.data_ptr(), passes.data_ptr(), b, h, w, levels, inner_iters, max_final_iters,
+           _build.stream_of(image)),
+        "watershed_sweep",
+    )
+    return (buf0, passes) if return_passes else buf0

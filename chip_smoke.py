@@ -39,6 +39,16 @@
    validation epoch (bPQ through B2-B4). It checks the launches per step,
    finite and falling losses, and one step's gradients against the same
    step on the plain attention.
+   After the CellViT-256 path, the five kernels that no main path runs are
+   driven through their entry points on that batch's own tensors, the
+   launch counts at 0 just before each, and held against their plain
+   versions exactly (B9-B11) or within `CONV_BF16_L2` (B12): the window
+   size filter B10 on the batch's root labels and compacted markers; the
+   radix filter B11a/B11b on its markers at min_size 10 and 64; the sweep
+   watershed B9 on the batch's relief, markers and blob mask and on
+   point-seeded floods of the blob discs, each also against 4096
+   stabilization passes (ROADMAP C1); the channel-major conv B12 on the
+   input of the type tower's 64→64 3×3 conv with its folded weights.
 7. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
@@ -103,6 +113,12 @@ def time_ms(fn, reps: int = 10) -> float:
 def bound_ms(n_bytes: float, n_flops: float = 0.0):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def print_times(kernels: dict) -> None:
+    for name, kd in kernels.items():
+        print(f"  {name}: kernel_ms {kd['ms']:.4f} plain_ms {kd['plain_ms']:.4f} "
+              f"library_ms {kd['library_ms']} bound_ms {kd['bound'][0]:.4f} ({kd['bound'][1]})")
 
 
 def spiral(n: int, gap: int = 2) -> np.ndarray:
@@ -416,6 +432,241 @@ def drive_training(card: str):
     return launches
 
 
+def driven(expected: dict, fn):
+    """Run `fn` (entry points on the main path's tensors) with every launch
+    count at 0 just before it; require exactly the `expected` launches just
+    after. Returns fn's result."""
+    from cellvit_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(counts == expected, f"launches {counts}, expected {expected}")
+    return out
+
+
+def px_differ(a, b) -> int:
+    return int((a != b).sum())
+
+
+def max_abs(a, b) -> float:
+    return float((a.long() - b.long()).abs().max())
+
+
+@torch.no_grad()
+def postproc_intermediates(infer, imgs: np.ndarray) -> dict:
+    """The CellViT-256 batch's own postprocessing tensors, recomputed from
+    `forward_maps` with the port's public ops as `ops/hv_postproc.py`
+    computes them on the card: root labels of np_prob ≥ 0.5, the blob mask
+    `blb`, the relief `dist`, the compacted marker labels before and after
+    their size filter."""
+    from cellvit_tpu_torch.models.fused import forward_maps
+    from cellvit_tpu_torch.ops import cc, cc_cuda, filters
+
+    x = torch.from_numpy(np.ascontiguousarray((imgs - infer.mean) / infer.std, np.float32))
+    out = forward_maps(infer.model, x.to(infer.device).to(infer.dtype))
+    roots = cc_cuda.connected_components_cuda(out["np_prob"] >= 0.5, n_outer=3)
+    blb = cc.remove_small_objects_window(roots, 10) > 0
+    blbf = blb.float()
+    sobelh = 1.0 - filters.minmax_normalize(filters.sobel(filters.minmax_normalize(out["hv0"]), 1, 0, 21))
+    sobelv = 1.0 - filters.minmax_normalize(filters.sobel(filters.minmax_normalize(out["hv1"]), 0, 1, 21))
+    overall = torch.clamp(torch.maximum(sobelh, sobelv) - (1.0 - blbf), min=0.0)
+    dist = -filters.gaussian_blur_3x3((1.0 - overall) * blbf)
+    marker = cc.morph_open(cc_cuda.fill_holes_cuda(blb & ~(overall >= 0.4), n_outer=2))
+    markers = cc_cuda.compact_root_labels_cuda(cc_cuda.connected_components_cuda(marker, 3), 3)
+    return dict(roots=roots, blb=blb, dist=dist, markers=markers,
+                marker_lab=cc.remove_small_objects_window(markers, 10))
+
+
+def blob_discs(batch: int, tile: int, seed: int):
+    """The discs of `synthetic.blob_tiles(batch, tile, seed)`, its random
+    draws replayed: (tile index, cy, cx, r) each."""
+    rng = np.random.default_rng(seed)
+    discs = []
+    for b in range(batch):
+        for _ in range(600):
+            cy, cx = rng.integers(10, tile - 10, 2)
+            r = int(rng.integers(4, 12))
+            rng.uniform(0.1, 0.4)  # the disc's shade
+            discs.append((b, int(cy), int(cx), r))
+    return discs
+
+
+def point_seeded_floods(masks: np.ndarray, seed: int):
+    """B9's second regime on the blob tiles: one marker pixel per disc (ids
+    1…600 a tile, in draw order) and the relief −exp(−d²/R²) of each disc
+    over it, the minimum where discs overlap. Requires that the replayed
+    discs cover exactly the tiles' masks."""
+    b, h, w = masks.shape
+    relief = np.zeros(masks.shape, np.float32)
+    marks = np.zeros(masks.shape, np.int32)
+    cover = np.zeros(masks.shape, bool)
+    for k, (i, cy, cx, r) in enumerate(blob_discs(b, h, seed)):
+        y0, y1, x0, x1 = max(cy - r, 0), min(cy + r + 1, h), max(cx - r, 0), min(cx + r + 1, w)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        disc = d2 <= r * r
+        box = relief[i, y0:y1, x0:x1]
+        box[:] = np.minimum(box, np.where(disc, -np.exp(-d2 / r**2), 0.0))
+        cover[i, y0:y1, x0:x1] |= disc
+        marks[i, cy, cx] = k % 600 + 1
+    require(np.array_equal(cover, masks), "the replayed discs do not cover the blob masks")
+    return relief, marks
+
+
+def size_filter_phases(inter: dict, kernels: dict, phase_launches: dict) -> None:
+    """B10 on the batch's root labels and compacted markers (min_size 10),
+    B11a/B11b on its compacted markers (min_size 10 and 64)."""
+    from cellvit_tpu_torch.ops import cc, cc_cuda
+
+    roots, markers = inter["roots"], inter["markers"]
+    n_px = roots.numel()
+    outs = driven({"remove_small_objects": 2}, lambda: [
+        cc_cuda.remove_small_objects_cuda(roots, 10), cc_cuda.remove_small_objects_cuda(markers, 10)])
+    phase_launches["remove_small_objects"] = 2
+    plain = [cc.remove_small_objects_window(roots, 10), cc.remove_small_objects_window(markers, 10)]
+    diffs = [px_differ(a, p) for a, p in zip(outs, plain)]
+    print(f"B10 window size filter, min_size 10: {diffs[0]} px differ on the root labels, {diffs[1]} "
+          f"on the compacted markers (exact required); foreground kept {int((outs[0] > 0).sum())} of "
+          f"{int((roots > 0).sum())} and {int((outs[1] > 0).sum())} of {int((markers > 0).sum())} px")
+    require(diffs == [0, 0], "window size-filter kernel disagrees")
+    kernels["remove_small_objects"] = dict(
+        route="cuda", source="cellvit_tpu_torch/csrc/rm_small.cu",
+        replaces="cellvit_tpu/ops/cc_pallas.py:284",
+        max_abs_err=max(max_abs(a, p) for a, p in zip(outs, plain)),
+        ms=time_ms(lambda: cc_cuda.remove_small_objects_cuda(roots, 10), 20),
+        plain_ms=time_ms(lambda: cc.remove_small_objects_window(roots, 10), 3),
+        library_ms=None, bound=bound_ms(4 * n_px + 4 * n_px))
+
+    outs = driven({"radix_hist": 2, "rm_mapback": 2}, lambda: [
+        cc_cuda.remove_small_objects_bincount_cuda(markers, ms) for ms in (10, 64)])
+    phase_launches.update(radix_hist=2, rm_mapback=2)
+    hist = cc_cuda.radix_histogram_cuda(markers)
+    phist = cc.radix_histogram(markers)
+    errs = {"B11a histogram": max_abs(hist, phist)}
+    for ms, out in zip((10, 64), outs):
+        keep = cc_cuda.radix_keep_cuda(markers, hist, ms)
+        errs[f"B11b keep, min_size {ms}"] = max_abs(keep, cc.radix_keep(markers, phist, ms))
+        errs[f"whole filter, min_size {ms}"] = max_abs(out, cc.remove_small_objects_bincount(markers, ms))
+    n_ids = int(markers[markers < cc_cuda.INT_MAX].max())
+    differ = outs[0] != plain[1]
+    print(f"B11 radix size filter on the compacted markers (largest id {n_ids}, table 8192): max |Δ| "
+          + ", ".join(f"{k} {v:g}" for k, v in errs.items()) + " (exact required); min_size 10 "
+          f"against B10 on the same labels: {int(differ.sum())} px differ, "
+          f"{int((differ & (markers == cc_cuda.INT_MAX)).sum())} of them on the id INT_MAX that the "
+          "3-pass compaction leaves unresolved (ROADMAP C4), an overflow id that B11 keeps")
+    require(all(v == 0 for v in errs.values()), "radix size-filter kernels disagree")
+    nb = hist[0].numel()
+    bins = (cc.radix_bins(markers, 64, 128)
+            + nb * torch.arange(markers.shape[0], device=markers.device).view(-1, 1, 1)).flatten()
+    common = dict(route="cuda", source="cellvit_tpu_torch/csrc/rm_small.cu")
+    kernels["radix_hist"] = dict(
+        common, replaces="cellvit_tpu/ops/cc_pallas.py:345", max_abs_err=errs["B11a histogram"],
+        ms=time_ms(lambda: cc_cuda.radix_histogram_cuda(markers), 20),
+        plain_ms=time_ms(lambda: cc.radix_histogram(markers), 3),
+        library_ms=time_ms(lambda: torch.bincount(bins, minlength=nb * markers.shape[0]), 20),
+        bound=bound_ms(4 * n_px + 4 * hist.numel()))
+    kernels["rm_mapback"] = dict(
+        common, replaces="cellvit_tpu/ops/cc_pallas.py:377",
+        max_abs_err=max(v for k, v in errs.items() if k != "B11a histogram"),
+        ms=time_ms(lambda: cc_cuda.radix_keep_cuda(markers, hist, 10), 20),
+        plain_ms=time_ms(lambda: cc.radix_keep(markers, hist, 10), 3),
+        library_ms=None, bound=bound_ms(4 * n_px + 4 * hist.numel() + 4 * n_px))
+
+
+def watershed_phase(inter: dict, masks: np.ndarray, kernels: dict, phase_launches: dict) -> None:
+    """B9 in two regimes against the plain sweep with the same cap of 512,
+    and the cap against 4096 passes (ROADMAP C1)."""
+    from cellvit_tpu_torch.ops import cc_cuda
+    from cellvit_tpu_torch.ops.watershed import watershed
+
+    dev = inter["dist"].device
+    relief, marks = point_seeded_floods(masks, 0)
+    regimes = {
+        "main path (its dist, marker labels and blob mask)": (inter["dist"], inter["marker_lab"],
+                                                              inter["blb"]),
+        "point-seeded blob floods": (torch.from_numpy(relief).to(dev), torch.from_numpy(marks).to(dev),
+                                     torch.from_numpy(masks).to(dev)),
+    }
+    outs = driven({"watershed": 2}, lambda: [
+        cc_cuda.watershed_cuda(*args, return_passes=True) for args in regimes.values()])
+    phase_launches["watershed"] = 2
+    errs, times = [], []
+    for (name, args), (lab, passes) in zip(regimes.items(), outs):
+        plab, ppasses = watershed(*args, max_final_iters=512, schedule="sweep", return_passes=True)
+        lab4k, passes4k = watershed(*args, max_final_iters=4096, schedule="sweep", return_passes=True)
+        diff, at_cap = px_differ(lab, plab), int((ppasses == 512).sum())
+        errs.append(max_abs(lab, plab))
+        times.append(time_ms(lambda: cc_cuda.watershed_cuda(*args), 5))
+        print(f"B9 sweep watershed, {name}: {diff} px differ from the plain sweep (exact required); "
+              f"stabilization passes per tile {passes.tolist()} (plain {ppasses.tolist()}); "
+              f"C1: {at_cap} of {len(passes)} tiles at the 512 cap, {px_differ(plab, lab4k)} px differ "
+              f"from the 4096-pass result (passes {passes4k.tolist()}); kernel_ms {times[-1]:.4f}")
+        require(diff == 0 and torch.equal(passes, ppasses), f"watershed kernel disagrees ({name})")
+    args = next(iter(regimes.values()))
+    kernels["watershed"] = dict(
+        route="cuda", source="cellvit_tpu_torch/csrc/watershed.cu",
+        replaces="cellvit_tpu/ops/cc_pallas.py:493", max_abs_err=max(errs), ms=times[0],
+        plain_ms=time_ms(lambda: watershed(*args, max_final_iters=512, schedule="sweep"), 1),
+        library_ms=None, bound=bound_ms(args[0].numel() * (4 + 4 + 1 + 4)))
+
+
+@torch.no_grad()
+def conv_phase(infer, imgs: np.ndarray, kernels: dict, phase_launches: dict) -> None:
+    """B12 on the input of the CellViT-256 type tower's 64→64 3×3 conv of
+    `decoder0_header`, with that layer's folded weights, bf16: with bias and
+    ReLU, and with a 3·F-channel residual's block 1."""
+    from cellvit_tpu_torch.models import fused
+    from cellvit_tpu_torch.ops import conv_cm
+
+    model = infer.model
+    x = torch.from_numpy(np.ascontiguousarray((imgs - infer.mean) / infer.std, np.float32))
+    _, (p0, p1, p2, p3), z4 = model.encode_features(x.to(infer.device).to(infer.dtype))
+    br = model.nuclei_type_maps_decoder
+    y = br.bottleneck_upsampler(z4)
+    for stage, p in ((br.decoder3_upsampler, p3), (br.decoder2_upsampler, p2),
+                     (br.decoder1_upsampler, p1)):
+        y = fused._run_stage(stage, torch.cat([p, y], dim=1))
+    head = br.decoder0_header
+    inp = fused._run_stage(head[:1], torch.cat([p0, y], dim=1)).contiguous()
+    del p0, p1, p2, p3, z4, y
+    w, b = fused.fold_bn(head[1], inp.dtype)  # OIHW
+    model_out = F.relu(F.conv2d(inp, w, b, padding=1))
+    w_hwio = w.permute(2, 3, 1, 0)
+    f = w.shape[0]
+    gen = torch.Generator(device=inp.device).manual_seed(4)
+    res = torch.randn((inp.shape[0], 3 * f, *inp.shape[2:]), generator=gen, device=inp.device)
+    res = res.to(inp.dtype)
+    out, out_res = driven({"conv3x3_cm": 2}, lambda: (
+        conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True),
+        conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True, res=res, res_block=1)))
+    phase_launches["conv3x3_cm"] = 2
+    rel = lambda a, r: ((a.float() - r.float()).norm() / r.float().norm()).item()
+    ref = conv_cm.conv3x3_cm_reference(inp, w_hwio, b, relu=True)
+    ref_res = conv_cm.conv3x3_cm_reference(inp, w_hwio, b, relu=True, res=res, res_block=1)
+    errs = {"bias + ReLU vs plain": rel(out, ref), "bias + ReLU vs the model's conv": rel(out, model_out),
+            "+ res block 1 vs plain": rel(out_res, ref_res)}
+    max_err = max((out.float() - ref.float()).abs().max().item(),
+                  (out_res.float() - ref_res.float()).abs().max().item())
+    print(f"B12 channel-major 3×3 conv {tuple(inp.shape)} → {f}, {inp.dtype}: relative L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {conv_cm.CONV_BF16_L2:g}); max_abs_err vs plain {max_err:.3e}, max|o| "
+          f"{ref.float().abs().max().item():.3e}")
+    require(all(v <= conv_cm.CONV_BF16_L2 for v in errs.values()), "conv kernel disagrees")
+    n_flops = 2.0 * inp.shape[0] * inp.shape[2] * inp.shape[3] * f * 9 * inp.shape[1]
+    res_ms = time_ms(lambda: conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True, res=res, res_block=1), 10)
+    print(f"  with res: kernel_ms {res_ms:.4f}")
+    kernels["conv3x3_cm"] = dict(
+        route="cuda", source="cellvit_tpu_torch/csrc/conv3x3_cm.cu",
+        replaces="cellvit_tpu/ops/conv_cm.py:80", max_abs_err=max_err,
+        ms=time_ms(lambda: conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True), 10),
+        plain_ms=time_ms(lambda: conv_cm.conv3x3_cm_reference(inp, w_hwio, b, relu=True), 3),
+        library_ms=time_ms(lambda: F.relu(F.conv2d(inp, w, b, padding=1)), 10),
+        bound=bound_ms(2 * (inp.numel() + out.numel()), n_flops))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -693,9 +944,7 @@ def main() -> int:
     del q, k, v, rh, rw, qa, ka, x
     torch.cuda.empty_cache()
 
-    for name, kd in kernels.items():
-        print(f"  {name}: kernel_ms {kd['ms']:.4f} plain_ms {kd['plain_ms']:.4f} "
-              f"library_ms {kd['library_ms']} bound_ms {kd['bound'][0]:.4f} ({kd['bound'][1]})")
+    print_times(kernels)
 
     # ---- main path 1: CellViT-256 WSI tile inference, device stage
     run_conf = {"data": {"num_nuclei_classes": 6, "num_tissue_classes": 19}}
@@ -707,6 +956,18 @@ def main() -> int:
     launches = drive("CellViT-256 path", infer, imgs, {
         "flash_attention": 12, "connected_components": 2, "flood": 1, "propagate_min": 1,
     }, card, embed=384)
+
+    # ---- B9-B12, which no main path runs, driven through their entry points
+    # on this batch's own tensors, each with the counts at 0 just before it
+    phase_launches = {}
+    t0 = time.perf_counter()
+    inter = postproc_intermediates(infer, imgs)
+    size_filter_phases(inter, kernels, phase_launches)
+    watershed_phase(inter, masks, kernels, phase_launches)
+    del inter
+    conv_phase(infer, imgs, kernels, phase_launches)
+    print(f"B9-B12 phases: {time.perf_counter() - t0:.1f} s")
+    print_times({k: kernels[k] for k in phase_launches})
     del model, infer
     torch.cuda.empty_cache()
 
@@ -759,6 +1020,8 @@ def main() -> int:
     for name, n in drive_training(card).items():
         launches[name] += n
 
+    for name, n in phase_launches.items():
+        launches[name] += n
     rows = []
     for name, kd in kernels.items():
         ms, by = kd.pop("bound")

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from cellvit_tpu_torch import _build
-from cellvit_tpu_torch.ops import attention, cc_cuda
+from cellvit_tpu_torch.ops import attention, cc, cc_cuda, conv_cm
 
 pytestmark = pytest.mark.gpu
 
@@ -270,3 +270,92 @@ def test_tiny_train_step_on_the_card(cuda, frozen):
     assert ("encoder.blocks.0.attn.qkv.weight" in moved) != frozen
     if frozen:
         assert not moved & frozen_names
+
+
+def _labels_on(cuda, seed, b=2, h=100, w=150, p=0.35):
+    """Compacted labels of a noisy mask, H and W not multiples of 32."""
+    m = torch.from_numpy(np.random.default_rng(seed).random((b, h, w)) < p)
+    return cc.connected_components(m).to(cuda)
+
+
+@pytest.mark.parametrize("min_size", [1, 2, 10])
+def test_window_size_filter_kernel_matches_plain(cuda, min_size):
+    lab = _labels_on(cuda, min_size)
+    before = _build.LAUNCHES["remove_small_objects"]
+    got = cc_cuda.remove_small_objects_cuda(lab, min_size)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["remove_small_objects"] == before + (min_size > 1)
+    assert torch.equal(got, cc.remove_small_objects_window(lab, min_size))
+
+
+@pytest.mark.parametrize("min_size,bins", [(1, (64, 128)), (2, (64, 128)), (10, (64, 128)),
+                                           (10, (4, 8))])
+def test_bincount_kernels_match_plain(cuda, min_size, bins):
+    lab = _labels_on(cuda, 20 + min_size)
+    lab[0, 0, :3] = torch.tensor([-5, 2**30, 8192], dtype=torch.int32)
+    hist = cc_cuda.radix_histogram_cuda(lab, *bins)
+    assert torch.equal(hist, cc.radix_histogram(lab, *bins))
+    assert torch.equal(cc_cuda.radix_keep_cuda(lab, hist, min_size), cc.radix_keep(lab, hist, min_size))
+    got = cc_cuda.remove_small_objects_bincount_cuda(lab, min_size, *bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cc.remove_small_objects_bincount(lab, min_size, bins[0] * bins[1], bins[0]))
+
+
+def _disc_flood(cuda, seed, b=2, h=100, w=150, n=12, grown=False):
+    """Disc masks with relief −exp(−r²/R²): one marker pixel per disc, or
+    with `grown` its core of radius R − 3."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.zeros((b, h, w), np.float32)
+    mask = np.zeros((b, h, w), bool)
+    mark = np.zeros((b, h, w), np.int32)
+    for i in range(b):
+        for k in range(1, n + 1):
+            cy, cx, r = int(rng.integers(8, h - 8)), int(rng.integers(8, w - 8)), int(rng.integers(5, 12))
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            mask[i] |= d2 <= r * r
+            img[i] = np.minimum(img[i], -np.exp(-d2 / (r * r)))
+            if grown:
+                mark[i][d2 <= (r - 3) ** 2] = k
+            else:
+                mark[i, cy, cx] = k
+    return tuple(torch.from_numpy(a).to(cuda) for a in (img, mark * mask, mask))
+
+
+@pytest.mark.parametrize("grown,kw", [(False, {}), (True, {}),
+                                      (False, dict(levels=4, inner_iters=1, max_final_iters=3)),
+                                      (False, dict(levels=5, inner_iters=3, max_final_iters=13))])
+def test_watershed_kernel_matches_plain(cuda, grown, kw):
+    img, mark, mask = _disc_flood(cuda, 3, grown=grown)
+    before = _build.LAUNCHES["watershed"]
+    got, passes = cc_cuda.watershed_cuda(img, mark, mask, return_passes=True, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["watershed"] == before + 1
+    want, want_passes = cc_cuda.watershed_cuda(img.cpu(), mark.cpu(), mask.cpu(),
+                                               return_passes=True, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(passes.cpu(), want_passes)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,f,with_res", [(8, 8, False), (48, 72, True), (48, 16, False)])
+def test_conv3x3_kernel_matches_plain(cuda, dtype, c, f, with_res):
+    """W = 100 (not a multiple of the 64-pixel tile), H = 12 (rows 4);
+    F = 72 spans two output-channel blocks. bf16 within `CONV_BF16_L2`,
+    fp32 within 2e-5 (the JAX test's bound)."""
+    g = torch.Generator(device=cuda).manual_seed(c + f)
+    x = torch.randn((2, c, 12, 100), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, c, f), generator=g, device=cuda) * 0.1).to(dtype)
+    b = torch.randn(f, generator=g, device=cuda)
+    res = torch.randn((2, 3 * f, 12, 100), generator=g, device=cuda).to(dtype) if with_res else None
+    before = _build.LAUNCHES["conv3x3_cm"]
+    got = conv_cm.conv3x3_cm(x, w, b, rows=4, relu=True, res=res, res_block=1)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["conv3x3_cm"] == before + 1
+    want = conv_cm.conv3x3_cm_reference(x, w, b, relu=True, res=res, res_block=1)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    else:
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rel <= conv_cm.CONV_BF16_L2, rel

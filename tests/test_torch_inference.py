@@ -158,3 +158,6 @@ def test_bindings_match_c_entry_points():
                 bound.append(name)
                 assert protos[(src, name)] == sig, (src, name, sig, protos[(src, name)])
     assert sorted(bound) == sorted(name for _, name in protos)
+    from cellvit_tpu_torch import _build
+
+    assert {src for src, _ in protos} == set(_build.SOURCES)  # every built source is bound
