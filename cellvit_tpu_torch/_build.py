@@ -35,8 +35,7 @@ _lock = threading.Lock()
 #: kernel launches per wrapper, counted where each wrapper launches its kernel
 LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,
-    "flash_attention_bwd_dq": 0,
-    "flash_attention_bwd_dkv": 0,
+    "flash_attention_bwd": 0,
     "connected_components": 0,
     "flood": 0,
     "propagate_min": 0,

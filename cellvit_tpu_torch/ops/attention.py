@@ -7,7 +7,8 @@ PyTorch version of the same function on a CPU tensor, and each a
 - `flash_attention` (B1, `csrc/flash_attn.cu`): softmax(q·kᵀ·scale)·v over
   (B, N, H, ·), the ViT-256 encoder's attention, plus the fp32 natural-log
   log-sum-exp per query row, (B, H, N), the residual of its backward. q/k may
-  be wider than v. Its backward is B8a/B8b (`csrc/flash_attn_bwd.cu`).
+  be wider than v. Its backward is B8 (`csrc/flash_attn_bwd.cu`), one fused
+  kernel for the JAX package's B8a (dq) and B8b (dk/dv).
 - `window_qkv_attention` (B5, `csrc/win_qkv_attn.cu`): the SAM windowed
   blocks' qkv projection and decomposed rel-pos attention, fused per window.
 - `relpos_flash_attention` (B6, `csrc/relpos_attn.cu`): flash attention with
@@ -27,6 +28,7 @@ as the JAX package's are XLA.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,14 +49,18 @@ SAM_HEAD_DIMS = (64, 80)
 #: padded key or a skipped accumulator rescale gives ≥ 9e-3 in "l2".
 FLASH_BOUNDS = {"max": 1e-2, "mean": 1e-2, "l2": 5e-3, "lse": 1e-3}
 
-#: B8a/B8b against the fp32 plain backward on the same q, k, v, o, lse and
-#: do (`flash_bwd_errors`): `attn_errors` of each of dq, dk and dv, relative
-#: to that gradient's own size. The kernels round p (for dv) and ds (for dq
-#: and dk) to bf16 before their products, and the gradients at the end: the
-#: CPU replay in `tests/test_torch_grad.py` plays these roundings to ≤ 2.4e-3
-#: in "l2" and ≤ 4.0e-3 in "max", at (1, 1025, 2, 64) and with q/k 120 wide
-#: against v 80. Δ left out, dk's scale dropped, an unmasked key past N, a
-#: query past N counted in dk/dv, or dp taken from o give ≥ 5.8e-2 in "l2".
+#: B8 (one fused kernel for B8a/B8b) against the fp32 plain backward on the
+#: same q, k, v, o, lse and do (`flash_bwd_errors`): `attn_errors` of each
+#: of dq, dk and dv, relative to that gradient's own size. The kernel rounds
+#: p (for dv) and ds (for dq and dk) to bf16 before their products, dk and dv
+#: at the end, and dq once after its per-128-key-tile fp32 partials are
+#: summed in any order: the CPU replay in `tests/test_torch_grad.py` plays
+#: these roundings to ≤ 2.4e-3 in "l2" and ≤ 4.0e-3 in "max", at
+#: (1, 1025, 2, 64) and with q/k 120 wide against v 80. Δ left out, dk's
+#: scale dropped, an unmasked key past N, a query past N counted in dk/dv,
+#: or dp taken from o give ≥ 5.8e-2 in "l2"; the ragged last key tile's dq
+#: partial dropped gives 2.4e-2 (1 key of 1025) and a workspace holding a
+#: previous dq 1.0.
 FLASH_BWD_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 1e-2}
 
 #: B5 against its fp32 plain version, relative to |o| (`attn_errors`). The
@@ -102,6 +108,13 @@ def flash_bwd_errors(grads, ref_grads) -> Dict[str, Dict[str, float]]:
 
 def within_bwd(errs: Dict[str, Dict[str, float]]) -> bool:
     return all(within(e, FLASH_BWD_BOUNDS) for e in errs.values())
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits): the bound on
+    how far two runs of the fused backward's dq may differ, since its fp32
+    partials are summed in any order and then rounded once."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 0.0
 
 
 def _check_rows(name: str, t: torch.Tensor, what: str) -> None:
@@ -209,56 +222,45 @@ def _flash_attention_cuda(
     return o, lse
 
 
-def _flash_bwd_args(q, k, v, do, lse, delta):
-    """Checked operands of B8a/B8b: (B, N, H, DV) bf16 contiguous do and
-    (B, H, N) fp32 contiguous lse and Δ; returns the sizes, strides and
-    pointers the C entries take."""
+def _flash_bwd_launch(q, k, v, do, lse, delta, dq_acc, dk, dv, scale: float) -> None:
+    """One launch of the fused B8 kernel on checked operands: adds dq into
+    the fp32 workspace `dq_acc` and writes dk and dv."""
+    b, n, h, dqk = q.shape
+    fn = _build.bind("flash_attn_bwd.cu", "flash_attn_bwd", "pppppppppiiiiiiiiiiiiiif")
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    err = fn(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, dq_acc, dk, dv)),
+        b, n, h, dqk, v.shape[-1], *_strides(q, k, v), float(scale), _build.stream_of(q),
+    )
+    _build.check(err, "flash_attn_bwd")
+
+
+def _flash_bwd_operands(q, k, v, o, lse, do):
+    """Checked operands of the fused B8 kernel and its outputs: (q, k, v,
+    contiguous bf16 do, contiguous lse, Δ = rowsum(do ∘ o), a zeroed fp32
+    (B, N, H, DQK) dq workspace, empty bf16 dk and dv)."""
     b, n, h, _ = q.shape
-    dqk, dv = _flash_operands(q, k, v)
-    if (do.dtype != torch.bfloat16 or not do.is_contiguous() or do.shape != v.shape
-            or lse.shape != (b, h, n) or delta.shape != (b, h, n)):
-        raise ValueError("flash backward takes contiguous bf16 do shaped as v and "
-                         "contiguous (B, H, N) fp32 lse and delta")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"flash backward needs a contiguous fp32 {name}")
-    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    return ptrs, (b, n, h, dqk, dv, *_strides(q, k, v))
-
-
-def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float) -> torch.Tensor:
-    """B8a: dq, a contiguous (B, N, H, DQK) bf16 tensor."""
-    ptrs, sizes = _flash_bwd_args(q, k, v, do, lse, delta)
-    b, n, h, dqk = sizes[:4]
-    dq = torch.empty((b, n, h, dqk), dtype=torch.bfloat16, device=q.device)
-    fn = _build.bind("flash_attn_bwd.cu", "flash_attn_bwd_dq", "pppppppiiiiiiiiiiiiiif")
-    _build.LAUNCHES["flash_attention_bwd_dq"] += 1
-    err = fn(*ptrs, dq.data_ptr(), *sizes, float(scale), _build.stream_of(q))
-    _build.check(err, "flash_attn_bwd_dq")
-    return dq
-
-
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B8b: (dk, dv), contiguous (B, N, H, DQK) and (B, N, H, DV) bf16."""
-    ptrs, sizes = _flash_bwd_args(q, k, v, do, lse, delta)
-    b, n, h, dqk, dv_w = sizes[:5]
-    dk = torch.empty((b, n, h, dqk), dtype=torch.bfloat16, device=q.device)
-    dv = torch.empty((b, n, h, dv_w), dtype=torch.bfloat16, device=q.device)
-    fn = _build.bind("flash_attn_bwd.cu", "flash_attn_bwd_dkv", "ppppppppiiiiiiiiiiiiiif")
-    _build.LAUNCHES["flash_attention_bwd_dkv"] += 1
-    err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes, float(scale), _build.stream_of(q))
-    _build.check(err, "flash_attn_bwd_dkv")
-    return dk, dv
+    dqk, dv_w = _flash_operands(q, k, v)
+    do = do.to(torch.bfloat16).contiguous()
+    lse = lse.contiguous()
+    if do.shape != v.shape or lse.shape != (b, h, n) or lse.dtype != torch.float32:
+        raise ValueError("flash backward takes do shaped as v and a (B, H, N) fp32 lse")
+    return (q, k, v, do, lse, flash_delta(o, do),
+            torch.zeros((b, n, h, dqk), dtype=torch.float32, device=q.device),
+            torch.empty((b, n, h, dqk), dtype=torch.bfloat16, device=q.device),
+            torch.empty((b, n, h, dv_w), dtype=torch.bfloat16, device=q.device))
 
 
 def _flash_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) by B8a and B8b, with Δ = rowsum(do ∘ o) a torch op."""
-    do = do.to(torch.bfloat16).contiguous()
-    args = (q, k, v, do, lse.contiguous(), flash_delta(o, do), scale)
-    return (_flash_bwd_dq_cuda(*args), *_flash_bwd_dkv_cuda(*args))
+    """(dq, dk, dv) by the fused B8 kernel in one launch, bf16, contiguous
+    (B, N, H, ·). Δ, the zeroed dq workspace that the kernel's atomics sum
+    into, and dq's cast to bf16 are torch ops around it."""
+    ops = _flash_bwd_operands(q, k, v, o, lse, do)
+    _flash_bwd_launch(*ops, scale)
+    return ops[6].to(torch.bfloat16), ops[7], ops[8]
 
 
 def _pad_width(t: torch.Tensor, multiple: int = 8) -> torch.Tensor:
@@ -273,7 +275,7 @@ def _flash_forward(q, k, v, scale):
 
 
 def _flash_backward(q, k, v, o, lse, do, scale):
-    """(dq, dk, dv) in q's, k's and v's dtypes: B8a/B8b on CUDA, the plain
+    """(dq, dk, dv) in q's, k's and v's dtypes: the fused B8 kernel on CUDA, the plain
     backward on the CPU."""
     if q.device.type == "cuda":
         dqk = q.shape[-1]
@@ -285,7 +287,7 @@ def _flash_backward(q, k, v, o, lse, do, scale):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B1 forward (saves o and lse); B8a/B8b backward (`_flash_core_bwd`)."""
+    """B1 forward (saves o and lse); B8 backward (`_flash_core_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -312,7 +314,7 @@ def flash_attention(
     DQK**-0.5. q/k may be wider than v; the output takes v's width.
 
     A ragged N (4097 = CLS + 64²) needs no padding: the kernels mask keys at
-    or beyond N. Differentiable: the backward runs B8a/B8b on the card.
+    or beyond N. Differentiable: the backward runs B8 on the card.
     Returns o, or (o, lse) with `return_lse` (lse carries no gradient)."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     o, lse = _FlashAttention.apply(q, k, v, scale)
@@ -532,7 +534,7 @@ def relpos_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _RelposFlashAttention(torch.autograd.Function):
     """B6 forward; backward through the lane-augmented formulation
     (`_relpos_core_bwd`): q′/k′ from `relpos_aug`, a wide B1 forward for o′
-    and lse, B8a/B8b, then dq′ sliced into dq·scale, dBh and dBw and dk′
+    and lse, B8, then dq′ sliced into dq·scale, dBh and dBw and dk′
     into dk (k′'s indicator lanes are constants)."""
 
     @staticmethod

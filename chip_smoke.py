@@ -23,12 +23,14 @@
    the port's CPU path on the same forward outputs.
    B1 is also held, widened, on q′/k′ wider than v: a ragged 20×20 SAM-H
    grid through `flash_attention_relpos` (q′/k′ 120 wide, v 80) and the
-   rel-pos backward's (1, 4096, 16, 208) against v of width 80. The flash
-   backward B8a (dq) and B8b (dk/dv) are held against
-   `flash_attention_bwd_plain` at the training step's (4, 4097, 6, 64) and
-   at SAM-H's rel-pos backward shape, and the gradient of every
-   differentiable kernel op (B1, B6, B7, B5) against autograd through its
-   plain version.
+   rel-pos backward's (1, 4096, 16, 208) against v of width 80. The fused
+   flash backward B8 (dq, dk and dv in one kernel, for the JAX package's
+   B8a and B8b) is held against `flash_attention_bwd_plain` at the training
+   step's (4, 4097, 6, 64) and at SAM-H's rel-pos backward shape, with dq's
+   run-to-run spread within one bf16 ulp; its kernel and whole-op times
+   stand beside its bound and SDPA's backward on each backend. Then the
+   gradient of every differentiable kernel op (B1, B6, B7, B5) against
+   autograd through its plain version.
 5. Drives one 224×256 tile through the SAM-H model, whose global blocks then
    take the whole-window kernel, and holds its outputs against the same
    forward with every SAM attention on its plain version.
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -247,8 +250,11 @@ def drive(name: str, infer, imgs: np.ndarray, per_batch, card: str, embed: int):
 
 
 def flash_bwd_phase(b: int, n: int, h: int, dqk: int, dv: int, scale: float, gen, dev):
-    """B8a/B8b on random q, k, v, do against `flash_attention_bwd_plain`;
-    returns (inputs, max abs errors of (dq, dk, dv))."""
+    """The fused B8 kernel on random q, k, v, do against
+    `flash_attention_bwd_plain`, and dq's run-to-run spread (its fp32
+    partials are summed by atomics in any order) against one bf16 ulp of
+    max|dq|; returns (q, k, v, o, lse, do, the kernel's checked operands),
+    the max abs errors of (dq, dk, dv)."""
     from cellvit_tpu_torch.ops import attention
 
     r = lambda *shape, s=1.0: (torch.randn(shape, generator=gen, device=dev) * s).to(torch.bfloat16)
@@ -258,28 +264,102 @@ def flash_bwd_phase(b: int, n: int, h: int, dqk: int, dv: int, scale: float, gen
         q, k, v = r(b, n, h, dqk, s=dqk**-0.25), r(b, n, h, dqk, s=dqk**-0.25), r(b, n, h, dv)
     o, lse = attention.flash_attention(q, k, v, scale=scale, return_lse=True)
     do = r(b, n, h, dv)
-    args = (q, k, v, do, lse, attention.flash_delta(o, do), scale)
-    grads = (attention._flash_bwd_dq_cuda(*args), *attention._flash_bwd_dkv_cuda(*args))
+    grads = attention._flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    again = attention._flash_attention_bwd_cuda(q, k, v, o, lse, do, scale)
     ref = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     errs = attention.flash_bwd_errors(grads, ref)
     max_errs = [(a.float() - r_.float()).abs().max().item() for a, r_ in zip(grads, ref)]
-    print(f"B8 flash backward ({b}, {n}, {h}, q/k {dqk}, v {dv}): max_abs_err dq/dk/dv "
+    spread = (grads[0].float() - again[0].float()).abs().max().item()
+    ulp = attention.bf16_ulp(grads[0].float().abs().max().item())
+    print(f"B8 fused flash backward ({b}, {n}, {h}, q/k {dqk}, v {dv}): max_abs_err dq/dk/dv "
           + ", ".join(f"{e:.3e}" for e in max_errs) + "; errors relative to each gradient "
           + "; ".join(f"{g}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
                       for g, e in errs.items())
-          + f" (bounds {attention.FLASH_BWD_BOUNDS})")
-    require(attention.within_bwd(errs), "flash backward kernels disagree")
-    return (q, k, v, o, lse, do, args), max_errs
+          + f" (bounds {attention.FLASH_BWD_BOUNDS}); run-to-run max|Δdq| {spread:.3e} "
+          f"(bound: one bf16 ulp of max|dq|, {ulp:.3e}); dk, dv equal: "
+          f"{torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])}")
+    require(attention.within_bwd(errs), "flash backward kernel disagrees")
+    require(spread <= ulp, "flash backward: dq differs between two runs by more than one bf16 ulp")
+    ops = attention._flash_bwd_operands(q, k, v, o, lse, do)
+    return (q, k, v, o, lse, do, ops), max_errs
 
 
-def flash_bwd_bounds(b: int, n: int, h: int, dqk: int, dv: int):
-    """(B8a, B8b) bounds: each reads q, k, v, do (bf16), lse and Δ (fp32) once
-    and writes its gradients once; B8a runs q·kᵀ, do·vᵀ and ds·k, B8b q·kᵀ,
-    pᵀ·do, do·vᵀ and dsᵀ·q."""
-    ins = 2 * b * n * h * (2 * dqk + 2 * dv) + 2 * 4 * b * h * n
-    pairs = b * h * n * n
-    return (bound_ms(ins + 2 * b * n * h * dqk, 2.0 * pairs * (2 * dqk + dv)),
-            bound_ms(ins + 2 * b * n * h * (dqk + dv), 2.0 * pairs * (2 * dqk + 2 * dv)))
+def flash_bwd_bound(b: int, n: int, h: int, dqk: int, dv: int):
+    """(bound, FLOPs) of the fused backward: q, k, v, do (bf16), lse and Δ
+    (fp32) read once, dq, dk, dv (bf16) written once; 5 products, q·kᵀ,
+    do·vᵀ, pᵀ·do, dsᵀ·q and ds·k."""
+    n_bytes = 2 * b * n * h * (2 * dqk + 2 * dv) + 2 * 4 * b * h * n + 2 * b * n * h * (2 * dqk + dv)
+    flops = 2.0 * b * h * n * n * (3 * dqk + 2 * dv)
+    return bound_ms(n_bytes, flops), flops
+
+
+def sdpa_bwd_ms(q, k, v, do) -> dict:
+    """ms of SDPA's backward (dq, dk, dv together) on each backend that takes
+    these (B, N, H, ·) inputs; None where a backend refuses them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION), ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vt)
+                dot = do.transpose(1, 2)
+                times[name] = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                                  retain_graph=True), 10)
+        except RuntimeError as e:
+            times[name] = None
+            print(f"  SDPA backend {name} refused ({tuple(q.shape)}, v {v.shape[-1]}): "
+                  f"{str(e).splitlines()[0][:120]}")
+        del qt, kt, vt
+    return times
+
+
+def flash_bwd_timing(label: str, phase, scale: float, kernels=None):
+    """Kernel ms, the whole op's ms (`_flash_backward`: Δ, workspace zeroing,
+    kernel, dq cast), the fused bound, TFLOP/s reached and SDPA's backward on
+    each backend; with `kernels`, the kernel's row."""
+    from cellvit_tpu_torch.ops import attention
+
+    (q, k, v, o, lse, do, ops), max_errs = phase
+    b, n, h, dqk = q.shape
+    dv = v.shape[-1]
+    kernel_ms = time_ms(lambda: attention._flash_bwd_launch(*ops, scale), 20)
+    op_ms = time_ms(lambda: attention._flash_backward(q, k, v, o, lse, do, scale), 20)
+    bnd, flops = flash_bwd_bound(b, n, h, dqk, dv)
+    sdpa = sdpa_bwd_ms(q, k, v, do)
+    ok = {k_: t for k_, t in sdpa.items() if t is not None}
+    best = min(ok, key=ok.get) if ok else None
+    print(f"  B8 at {label}: kernel_ms {kernel_ms:.4f} ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
+          f"whole op ms {op_ms:.4f}, fused bound_ms {bnd[0]:.4f} ({bnd[1]}, {flops / 1e9:.1f} GFLOP); "
+          "SDPA backward ms " + ", ".join(f"{k_} {t:.4f}" if t is not None else f"{k_} refused"
+                                          for k_, t in sdpa.items())
+          + (f"; fastest {best}: whole op / SDPA {op_ms / ok[best]:.3f}" if best else ""))
+    if kernels is not None:
+        kernels["flash_attention_bwd"] = dict(
+            route="cuda", source="cellvit_tpu_torch/csrc/flash_attn_bwd.cu",
+            replaces="cellvit_tpu/ops/attention.py:106 and :143", max_abs_err=max(max_errs),
+            ms=kernel_ms,
+            plain_ms=time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale), 2),
+            library_ms=ok[best] if best else None, bound=bnd)
+
+
+def ptxas_spills(text: str) -> dict:
+    """{kernel entry: (spill store bytes, spill load bytes)} from `-Xptxas -v`;
+    a template kernel's entry is named by its integer arguments."""
+    spills, entry = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            args = re.search(r"(\w+?)ILi(\d+)E((?:Li\d+E)*)", entry)
+            if args:
+                entry = f"{args.group(1)[-16:]}<{args.group(2)}" + "".join(
+                    f", {a}" for a in re.findall(r"Li(\d+)E", args.group(3))) + ">"
+        elif "spill stores" in ln and entry is not None:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            spills[entry] = (nums[1], nums[2])
+    return spills
 
 
 def grad_check(name: str, fn, plain, inputs, gen) -> None:
@@ -383,7 +463,7 @@ def drive_training(card: str):
     torch.cuda.synchronize()
     print(f"training: warm-up step {time.perf_counter() - t0:.3f} s")
     _build.reset_launches()
-    per_step = {"flash_attention": 12, "flash_attention_bwd_dq": 12, "flash_attention_bwd_dkv": 12}
+    per_step = {"flash_attention": 12, "flash_attention_bwd": 12}
     losses, step_ms, wall_ms = [], [], []
     for i in range(TIMED_STEPS + 1):
         frozen = i == TIMED_STEPS
@@ -692,6 +772,10 @@ def main() -> int:
     for src, (sec, text) in report.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         print(f"  {src}: {sec:.2f} s; " + " | ".join(regs))
+    if "flash_attn_bwd.cu" in report:
+        spills = ptxas_spills(report["flash_attn_bwd.cu"][1])
+        print("  flash_attn_bwd.cu spill bytes (stores, loads) per instantiation <KB, DV>: "
+              + ", ".join(f"{e}: {v}" for e, v in spills.items()))
 
     kernels = {}
 
@@ -883,35 +967,16 @@ def main() -> int:
         require(attention.within(errs, attention.FLASH_BOUNDS), f"B1 widened, {label}: disagrees")
     del qkv, q, k, v, rh, rw, o, qa, ka, qw, kw, vw, wide, ox, lse, po, plse
 
-    # ---- B8a/B8b flash backward at the training step's shape and at SAM-H's
-    # rel-pos backward shape
+    # ---- B8, the fused flash backward, at the training step's shape and at
+    # SAM-H's rel-pos backward shape
     tb, t_heads = TRAIN_BATCH, 6
-    (q, k, v, o, lse, do, args), max_errs = flash_bwd_phase(tb, n_tok, t_heads, 64, 64, 64**-0.5, gen, dev)
-    plain_bwd_ms = time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, 64**-0.5), 2)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt)
-    dot = do.transpose(1, 2)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
-    bnd_dq, bnd_dkv = flash_bwd_bounds(tb, n_tok, t_heads, 64, 64)
-    for name, fn, err, bnd in (
-            ("flash_attention_bwd_dq", lambda: attention._flash_bwd_dq_cuda(*args), max_errs[0], bnd_dq),
-            ("flash_attention_bwd_dkv", lambda: attention._flash_bwd_dkv_cuda(*args),
-             max(max_errs[1:]), bnd_dkv)):
-        kernels[name] = dict(
-            route="cuda", source="cellvit_tpu_torch/csrc/flash_attn_bwd.cu",
-            replaces="cellvit_tpu/ops/attention.py:" + ("106" if name.endswith("dq") else "143"),
-            max_abs_err=err, ms=time_ms(fn, 20), plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms,
-            bound=bnd)
-    print(f"  B8 at ({tb}, {n_tok}, {t_heads}, 64): plain_ms (dq, dk, dv together) {plain_bwd_ms:.4f}, "
-          f"SDPA backward (dq, dk, dv together) {sdpa_bwd_ms:.4f} ms")
-    del q, k, v, o, lse, do, args, qt, kt, vt, out, dot
-    (q, k, v, o, lse, do, args), _ = flash_bwd_phase(1, 4096, heads, 208, hd, 1.0, gen, dev)
-    bnd_dq, bnd_dkv = flash_bwd_bounds(1, 4096, heads, 208, hd)
-    print(f"  B8 at (1, 4096, {heads}, q/k 208, v {hd}): dq kernel_ms "
-          f"{time_ms(lambda: attention._flash_bwd_dq_cuda(*args), 20):.4f} (bound {bnd_dq[0]:.4f}), "
-          f"dk/dv kernel_ms {time_ms(lambda: attention._flash_bwd_dkv_cuda(*args), 20):.4f} "
-          f"(bound {bnd_dkv[0]:.4f})")
-    del q, k, v, o, lse, do, args
+    phase = flash_bwd_phase(tb, n_tok, t_heads, 64, 64, 64**-0.5, gen, dev)
+    flash_bwd_timing(f"({tb}, {n_tok}, {t_heads}, 64)", phase, 64**-0.5, kernels)
+    del phase
+    phase = flash_bwd_phase(1, 4096, heads, 208, hd, 1.0, gen, dev)
+    flash_bwd_timing(f"(1, 4096, {heads}, q/k 208, v {hd})", phase, 1.0)
+    del phase
+    torch.cuda.empty_cache()
 
     # ---- gradients of every differentiable kernel op against autograd
     # through its plain version, at the ViT-256 training and SAM-H shapes

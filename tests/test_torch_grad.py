@@ -123,11 +123,28 @@ def _bf(t):
     return t.to(torch.bfloat16).float()
 
 
-def _replay_bwd(q, k, v, o, lse, do, scale, fault, extra):
-    """B8a/B8b's arithmetic on the CPU: p recomputed from lse in fp32, dp
-    from bf16 do and v, ds = p∘(dp − Δ)·scale; p and ds rounded to bf16
-    before their products, the gradients at the end. `fault` plants one of
-    the bugs FLASH_BWD_BOUNDS must catch; `extra` holds the rows a kernel
+def _dq_from_key_tiles(ds, kq, order_seed, fault, block_k=128):
+    """dq as the fused kernel sums it: one fp32 partial bf16(ds)·k per key
+    tile of 128 keys, added into a zeroed fp32 workspace in an order
+    that changes from run to run (a shuffle seeded by `order_seed`), rounded
+    once by the caller. Faults: the ragged last key tile's partial dropped,
+    or a workspace left holding a previous call's dq."""
+    parts = [torch.einsum("bhqk,bkhd->bqhd", _bf(ds[..., t:t + block_k]), kq[:, t:t + block_k])
+             for t in range(0, kq.shape[1], block_k)]
+    if fault == "last_key_tile_dropped":
+        parts = parts[:-1]
+    acc = sum(parts) if fault == "stale_workspace" else torch.zeros_like(parts[0])
+    for i in np.random.default_rng(order_seed).permutation(len(parts)):
+        acc = acc + parts[i]
+    return acc
+
+
+def _replay_bwd(q, k, v, o, lse, do, scale, fault, extra, order_seed=0):
+    """The fused B8 kernel's arithmetic on the CPU: p recomputed from lse in
+    fp32, dp from bf16 do and v, ds = p∘(dp − Δ)·scale; p and ds rounded to
+    bf16 before their products, dk and dv at the end, dq summed over key
+    tiles (`_dq_from_key_tiles`) and then rounded. `fault` plants one of the
+    bugs FLASH_BWD_BOUNDS must catch; `extra` holds the rows a kernel
     without its bound checks would read past N (the next rows in memory)."""
     qf, kf, vf, dof, of = (t.float() for t in (q, k, v, do, o))
     delta = (dof * of).sum(-1).transpose(1, 2)
@@ -137,7 +154,7 @@ def _replay_bwd(q, k, v, o, lse, do, scale, fault, extra):
     p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kq) * scale - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, of if fault == "dp_from_o" else vq)
     ds = p * (dp - (0.0 if fault == "no_delta" else delta[..., None])) * scale
-    dq = torch.einsum("bhqk,bkhd->bqhd", _bf(ds), kq)
+    dq = _dq_from_key_tiles(ds, kq, order_seed, fault)
     ds_k = ds / scale if fault == "dk_unscaled" else ds
     qk, dok, pk = qf, dof, p
     if fault == "query_past_n":
@@ -167,21 +184,40 @@ def _bwd_case(b, n, h, dqk, dv, scale, seed):
     return (q, k, v, o, lse, do, scale), extra
 
 
+def _case(case):
+    if case == "vit":
+        return _bwd_case(1, 1025, 2, 64, 64, 64**-0.5, 0)
+    return _bwd_case(1, 400, 2, 120, 80, 1.0, 1)
+
+
 @pytest.mark.parametrize("case,fault", [
     ("vit", "none"), ("wide", "none"), ("vit", "no_delta"), ("vit", "dk_unscaled"),
     ("vit", "unmasked_key"), ("vit", "query_past_n"), ("vit", "dp_from_o"),
+    ("vit", "last_key_tile_dropped"), ("wide", "last_key_tile_dropped"),
+    ("vit", "stale_workspace"), ("wide", "stale_workspace"),
 ])
 def test_flash_bwd_bounds_separate_rounding_from_kernel_faults(case, fault):
     """At (1, 1025, 2, 64) with the ViT scale, and with q′/k′ 120 wide against
-    v 80 at scale 1 (a ragged rel-pos grid), B8's bf16 roundings stay within
-    FLASH_BWD_BOUNDS of the fp32 plain backward; each planted fault (Δ not
+    v 80 at scale 1 (a ragged rel-pos grid), B8's bf16 roundings (dq summed
+    over 128-key tiles) stay within FLASH_BWD_BOUNDS of the fp32 plain
+    backward; each planted fault (Δ not
     subtracted, dk's scale dropped, a key past N left unmasked, a query past
-    N counted in dk/dv, dp taken from o instead of v) does not."""
-    if case == "vit":
-        args, extra = _bwd_case(1, 1025, 2, 64, 64, 64**-0.5, 0)
-    else:
-        args, extra = _bwd_case(1, 400, 2, 120, 80, 1.0, 1)
+    N counted in dk/dv, dp taken from o instead of v, the ragged last key
+    tile's dq partial dropped (1 key of 1025, 16 of 400), a dq workspace
+    still holding a previous call's dq) does not."""
+    args, extra = _case(case)
     got = _replay_bwd(*args, fault, extra)
     ref = attention.flash_attention_bwd_plain(*args)
     errs = attention.flash_bwd_errors(got, ref)
     assert attention.within_bwd(errs) == (fault == "none"), errs
+
+
+@pytest.mark.parametrize("case", ["vit", "wide"])
+def test_fused_bwd_dq_order_within_one_bf16_ulp(case):
+    """Two orders of the same key-tile partials give dq within one bf16 ulp
+    of max|dq| (the run-to-run bound `chip_smoke.py` and the GPU tests hold
+    the kernel to), and some order does move a rounding."""
+    args, extra = _case(case)
+    dqs = [_replay_bwd(*args, "none", extra, order_seed=s)[0] for s in range(4)]
+    spread = max((a - dqs[0]).abs().max().item() for a in dqs[1:])
+    assert 0.0 < spread <= attention.bf16_ulp(dqs[0].abs().max().item()), spread
