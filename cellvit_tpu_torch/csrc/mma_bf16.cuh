@@ -1,4 +1,5 @@
-// Warp-level bf16 tensor-core helpers shared by the attention kernels.
+// Warp-level bf16 tensor-core helpers of the `mma.sync` kernels (B5, B7,
+// B12).
 //
 // `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators. Fragment
 // layout (g = lane / 4, t = lane % 4):
@@ -52,18 +53,6 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const __nv_bf
                                        int ld, int n0, int k0, int g, int t) {
   b0 = ld32(bt + (n0 + g) * ld + k0 + 2 * t);
   b1 = ld32(bt + (n0 + g) * ld + k0 + 8 + 2 * t);
-}
-
-// The B fragment of output columns n0..n0+7, depth k0..k0+15, from a
-// row-major B[k][n] in shared memory with row pitch `ld` (rows 16-byte
-// aligned): `ldmatrix.trans` hands each lane B[k0+2t..][n0+g] directly.
-__device__ __forceinline__ void load_b_trans(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* b,
-                                             int ld, int n0, int k0, int lane) {
-  const uint32_t addr = static_cast<uint32_t>(
-      __cvta_generic_to_shared(b + (k0 + (lane & 15)) * ld + n0));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
 }
 
 // 16-byte asynchronous copy global → shared; zero-fills the 16 bytes when

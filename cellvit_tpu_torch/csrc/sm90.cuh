@@ -82,6 +82,12 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrive on named barrier `id` without waiting: `count` counts the threads
+// that arrive and those that `named_barrier` there.
+__device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Order this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma, TMA) of the same bytes.
 __device__ __forceinline__ void fence_async_smem() {
@@ -169,6 +175,14 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// The same for an MN-major operand wider than 64 columns: its 64-column
+// tiles lie `tile_bytes` apart (the leading byte offset).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t tile_bytes) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((tile_bytes >> 4) & 0x3FFF) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -208,6 +222,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // TA/TB = 1 reads A/B MN-major.
 template <int N, int TA, int TB>
 struct SS;
+
+template <int TA, int TB>
+struct SS<128, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32), SM90_D8(40),
+          SM90_D8(48), SM90_D8(56)
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
 
 template <int TA, int TB>
 struct SS<64, TA, TB> {
@@ -264,6 +295,24 @@ struct RS<16, TB> {
         "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : SM90_D8(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
+
+// d (64×80, as d[32] for columns 0-63 and dx[8] for 64-79) += A·B, B read
+// MN-major from two 64-column tiles (`desc_sw128_mn`).
+struct RS80 {
+  static __device__ __forceinline__ void run(float (&d)[32], float (&dx)[8], const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), "+f"(dx[0]), "+f"(dx[1]), "+f"(dx[2]),
+          "+f"(dx[3]), "+f"(dx[4]), "+f"(dx[5]), "+f"(dx[6]), "+f"(dx[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
 

@@ -34,7 +34,9 @@ class CellSegmentationInference:
             and its run config (normalisation, class counts).
         batch_size: tiles per batch of the host pipeline (a later slice); the
             device stage takes the batch it is given.
-        mixed_precision: run the model in bf16 (reference AMP).
+        mixed_precision: compute in bf16 under `torch.autocast` with the
+            parameters kept in fp32 (the reference's AMP, and the JAX
+            package's `model.clone(dtype=bfloat16)`).
         max_instances_per_tile: capacity of the per-instance statistics.
         device: "cuda" (default; raises without a GPU) or "cpu".
     """
@@ -60,8 +62,10 @@ class CellSegmentationInference:
         self.run_conf = dict(run_conf or {})
         self.batch_size = batch_size
         self.max_instances = max_instances_per_tile
+        self.mixed_precision = mixed_precision
+        #: the dtype of the input batch and of the model's compute
         self.dtype = torch.bfloat16 if mixed_precision else torch.float32
-        self.model = model.to(device=self.device, dtype=self.dtype).eval()
+        self.model = model.to(device=self.device, dtype=torch.float32).eval()
 
         norm = (self.run_conf.get("transformations") or {}).get("normalize", {})
         self.mean = np.asarray(norm.get("mean", (0.5, 0.5, 0.5)), np.float32)
@@ -91,6 +95,17 @@ class CellSegmentationInference:
         if int(meta["patch_overlap"]) != overlap:
             raise RuntimeError(f"patch overlap must be {overlap}")
 
+    def autocast(self):
+        """The mixed-precision context of the model's forward (off in fp32)."""
+        return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.mixed_precision)
+
+    @torch.no_grad()
+    def forward_maps(self, x: torch.Tensor, retrieve_tokens: bool = False) -> Dict:
+        """`models.fused.forward_maps` of the model on NHWC `x` (normalised,
+        in `self.dtype`) under `autocast()`."""
+        with self.autocast():
+            return forward_maps(self.model, x, retrieve_tokens=retrieve_tokens)
+
     def _event(self) -> Optional[torch.cuda.Event]:
         if self.device.type != "cuda":
             return None
@@ -109,7 +124,7 @@ class CellSegmentationInference:
         x = x.to(self.device, non_blocking=True).to(self.dtype)
         ksize, object_size = (21, 10) if magnification == 40 else (11, 3)
         events = [self._event()]
-        out = forward_maps(self.model, x, retrieve_tokens=True)
+        out = self.forward_maps(x, retrieve_tokens=True)
         events.append(self._event())
         inst, passes = instance_map_batch_maps(
             out["np_prob"], out["hv0"], out["hv1"], object_size=object_size, ksize=ksize,

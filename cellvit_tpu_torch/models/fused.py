@@ -15,12 +15,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from cellvit_tpu_torch.models.cellvit import CellViT
-from cellvit_tpu_torch.models.layers import ConvBNRelu
+from cellvit_tpu_torch.models.layers import ConvBNRelu, compute_dtype
 
 
 def fold_bn(block: ConvBNRelu, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """(weight', bias') of a ConvBNRelu with eval-mode BN folded in (fp32
-    arithmetic, then cast to `dtype`)."""
+    arithmetic on the fp32 parameters and statistics, then cast to the
+    compute dtype `dtype`, as the JAX package folds before its casts)."""
     conv, bn = block.block[0], block.block[1]
     s = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
     w = conv.weight.float() * s[:, None, None, None]
@@ -29,10 +30,10 @@ def fold_bn(block: ConvBNRelu, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.
 
 
 def _folded(block: ConvBNRelu, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`fold_bn`, kept on the block and redone only when its weights change:
-    the key holds each tensor's address and in-place version counter. The
-    cache pins the folded tensors' storage, so a new tensor cannot reuse an
-    address the key holds."""
+    """`fold_bn`, kept on the block and redone only when its weights change
+    or another compute dtype is asked for: the key holds the dtype and each
+    tensor's address and in-place version counter. The cache pins the folded
+    tensors' storage, so a new tensor cannot reuse an address the key holds."""
     conv, bn = block.block[0], block.block[1]
     srcs = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
     key = (dtype,) + tuple((t.data_ptr(), t._version) for t in srcs)
@@ -45,10 +46,11 @@ def _folded(block: ConvBNRelu, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.
 
 def _run_stage(stage: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
     """Folded ConvBNRelu layers, then the stage's last module as is."""
+    dtype = compute_dtype(x)
     for layer in stage:
         if isinstance(layer, ConvBNRelu):
-            w, b = _folded(layer, x.dtype)
-            x = F.relu(F.conv2d(x, w, b, padding=w.shape[-1] // 2))
+            w, b = _folded(layer, dtype)
+            x = F.relu(F.conv2d(x.to(dtype), w, b, padding=w.shape[-1] // 2))
         else:
             x = layer(x)
     return x

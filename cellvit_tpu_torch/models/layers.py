@@ -166,6 +166,34 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
 
 
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a layer computes in: autocast's where autocast is on for
+    x's device (mixed precision keeps fp32 parameters), else x's own."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+
+
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` that, in evaluation, returns `compute_dtype(x)`: under
+    autocast its output reaches the bf16 kernels in bf16, as flax's
+    LayerNorm with dtype bf16 returns it in the JAX package's mixed
+    precision (CUDA autocast would return fp32). The statistics are taken
+    in fp32 inside the one bf16 pass; the affine parameters are cast to bf16
+    at use, as autocast casts every Linear and conv weight (flax keeps these
+    two in fp32: a normalisation in fp32 with fp32 affine parameters would
+    move five times the bytes, ≈14 ms of a SAM-H batch, since CUDA's layer
+    norm takes no bf16 input with fp32 parameters). Training keeps
+    `nn.LayerNorm`, whose autocast runs in fp32 as the reference's AMP does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x)
+        dtype = compute_dtype(x)
+        with torch.autocast(x.device.type, enabled=False):
+            return F.layer_norm(x.to(dtype), self.normalized_shape, self.weight.to(dtype),
+                                self.bias.to(dtype), self.eps)
+
+
 class LayerNorm2d(nn.Module):
     """LayerNorm over the channels of an NCHW map (the SAM neck's
     LayerNorm2d): biased variance, eps 1e-6, computed in fp32, returned in

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cellvit_tpu_torch.models.layers import LayerNorm2d, PatchEmbed, resize_matrix_1d
+from cellvit_tpu_torch.models.layers import (LayerNorm, LayerNorm2d, PatchEmbed, compute_dtype,
+                                             resize_matrix_1d)
 from cellvit_tpu_torch.ops.attention import flash_attention_relpos, window_qkv_attention
 
 
@@ -86,7 +87,11 @@ class SamAttention(nn.Module):
         hd = c // nh
         rh, rw = gather_rel_pos(self.rel_pos_h, h), gather_rel_pos(self.rel_pos_w, w)
         if h == w and 196 <= n <= 256:
-            out = window_qkv_attention(x.reshape(b, n, c), self.qkv.weight.t(), self.qkv.bias,
+            # the fused op runs the qkv projection itself: its operands in the
+            # compute dtype (bf16 under autocast, whose casts it bypasses)
+            dt = compute_dtype(x)
+            bias = None if self.qkv.bias is None else self.qkv.bias.to(dt)
+            out = window_qkv_attention(x.reshape(b, n, c).to(dt), self.qkv.weight.t().to(dt), bias,
                                        rh, rw, nh)
             return self.proj(out).reshape(b, h, w, c)
         qkv = self.qkv(x.reshape(b, n, c)).reshape(b, n, 3, nh, hd)
@@ -94,12 +99,13 @@ class SamAttention(nn.Module):
         if n >= 196:
             out = flash_attention_relpos(q, k, v, rh, rw, (h, w))
             return self.proj(out.reshape(b, n, c)).reshape(b, h, w, c)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
-        rq = q.float().reshape(b, h, w, nh, hd)
-        bias_h = torch.einsum("bijnd,ikd->bnijk", rq, rh)
-        bias_w = torch.einsum("bijnd,jld->bnijl", rq, rw)
-        logits = logits + (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, nh, n, n)
-        p = torch.softmax(logits, dim=-1)
+        with torch.autocast(x.device.type, enabled=False):  # fp32 logits, autocast or not
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
+            rq = q.float().reshape(b, h, w, nh, hd)
+            bias_h = torch.einsum("bijnd,ikd->bnijk", rq, rh)
+            bias_w = torch.einsum("bijnd,jld->bnijl", rq, rw)
+            logits = logits + (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, nh, n, n)
+            p = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", p.to(x.dtype), v)
         return self.proj(out.reshape(b, h, w, c))
 
@@ -125,10 +131,10 @@ class SamBlock(nn.Module):
                  window_size: int = 0, grid_size: int = 64) -> None:
         super().__init__()
         self.window_size = window_size
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = SamAttention(dim, num_heads, qkv_bias,
                                  rel_pos_dim=window_size if window_size > 0 else grid_size)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

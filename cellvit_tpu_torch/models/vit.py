@@ -20,7 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from cellvit_tpu_torch.models.layers import DropPath, Dropout, Mlp, PatchEmbed, resize_matrix_1d
+from cellvit_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm, Mlp, PatchEmbed,
+                                             resize_matrix_1d)
 from cellvit_tpu_torch.ops.attention import flash_attention
 
 FLASH_MIN_TOKENS = 1024
@@ -48,10 +49,11 @@ class Attention(nn.Module):
         # the flash kernels never form the probabilities to drop from
         if n >= FLASH_MIN_TOKENS and (not self.training or self.attn_drop.p == 0.0):
             out = flash_attention(q, k, v)
-        else:
-            attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
-            attn = self.attn_drop(torch.softmax(attn, dim=-1))
-            out = torch.einsum("bhqk,bkhd->bqhd", attn.to(x.dtype), v)
+        else:  # fp32 logits and softmax, as the JAX package's einsum route, autocast or not
+            with torch.autocast(x.device.type, enabled=False):
+                attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd**-0.5
+                attn = torch.softmax(attn, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", self.attn_drop(attn).to(x.dtype), v)
         return self.proj_drop(self.proj(out.reshape(b, n, c)))
 
 
@@ -63,9 +65,9 @@ class Block(nn.Module):
                  qkv_bias: bool = True, dropout: float = 0.0, attn_dropout: float = 0.0,
                  drop_path_rate: float = 0.0) -> None:
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, dropout, attn_dropout)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dropout)
         self.drop_path = DropPath(drop_path_rate)
 
@@ -102,7 +104,7 @@ class HistoViT(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, dropout, attn_dropout, rate)
             for rate in rates
         )
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
+        self.norm = LayerNorm(embed_dim, eps=1e-6)
         self.head = nn.Linear(embed_dim, num_classes) if num_classes > 0 else nn.Identity()
 
     def _interpolated_pos_embed(self, ht: int, wt: int) -> torch.Tensor:

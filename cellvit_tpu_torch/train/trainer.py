@@ -211,6 +211,11 @@ class CellViTTrainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+        """Eval-mode forward and loss. Its numerics are the inference
+        forward's: under mixed precision `layers.LayerNorm` returns bf16 in
+        evaluation (its affine cast to bf16), where the training forward
+        normalises in fp32, so validation losses of the same weights differ
+        from training's by that rounding too."""
         self.model.eval()
         preds = self.unpack_predictions(self._forward(batch["image"]))
         total, parts = self.calculate_loss(preds, self.assemble_gt(batch))

@@ -13,14 +13,20 @@
    whole-window attention on a 14×16 grid, each within its bf16 bound.
    Each phase times the kernel, the plain version and, where one exists, one
    PyTorch library call of the same function, beside the least time the card
-   could take.
+   could take (for the attention kernels also their exponentials over the
+   SFUs' rate at the card's maximum SM clock). B1 and B6, the wgmma/TMA
+   flash forwards, also print their TFLOP/s and host µs per call, and the
+   build prints the ptxas spill bytes of every flash instantiation.
 4. Drives the main paths through `CellSegmentationInference` on batches of
    8 × 1024² synthetic blob tiles, bf16, one warm-up batch and timed
    batches each: a full-width CellViT-256, then a full-width CellViT-SAM-H
    (random weights from a seed, with probe weights on the image skip path
-   so the nucleus and HV maps follow the tiles). It checks each path's
+   so the nucleus and HV maps follow the tiles), in mixed precision: bf16
+   autocast over fp32 parameters, which it checks. It checks each path's
    kernel launch counts, its outputs, and one tile's instance map against
-   the port's CPU path on the same forward outputs.
+   the port's CPU path on the same forward outputs; it prints the INT_MAX
+   pixels per tile of the CellViT-256 batch's compacted markers (ROADMAP C4)
+   and the device time of SAM-H's per-forward parameter casts.
    B1 is also held, widened, on q′/k′ wider than v: a ragged 20×20 SAM-H
    grid through `flash_attention_relpos` (q′/k′ 120 wide, v 80) and the
    rel-pos backward's (1, 4096, 16, 208) against v of width 80. The fused
@@ -61,6 +67,7 @@ fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -73,6 +80,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+SFU_EX2_PER_CLOCK = 132 * 16  # H100 SXM: 16 MUFU ex2 a clock on each of 132 SMs
 BATCH, TILE = 8, 1024
 TIMED_BATCHES = 2
 SMALL_TILE = (224, 256)  # its SAM global grid, 14×16, takes the whole-window kernel
@@ -113,9 +121,57 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_flops: float = 0.0):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def bound_ms(n_bytes: float, n_flops: float = 0.0, n_ex2: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak rate, bf16 tensor-core
+    FLOPs and, for the attention kernels, the exponentials over the SFUs'
+    rate at the card's maximum SM clock."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_flops / BF16_FLOPS, n_ex2 / (SFU_EX2_PER_CLOCK * max_sm_clock_hz()) if n_ex2 else 0.0)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def queued_ms(fn) -> float:
+    """Device ms of the launches `fn` enqueues, run back to back: a spin
+    kernel (≈25 ms) goes first, so the host has queued all of them before
+    the first one starts and no host gap falls between the two events."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs per call of `fn` (an enqueue: the launches are not waited
+    for), over `calls` back-to-back calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def attention_times(name: str, kd: dict, flops: float, ex2: float) -> None:
+    """Print an attention kernel's TFLOP/s and its two operation bounds."""
+    clock = max_sm_clock_hz()
+    print(f"  {name}: kernel_ms {kd['ms']:.4f} ({flops / kd['ms'] / 1e9:.1f} TFLOP/s), library_ms "
+          f"{kd['library_ms']:.4f}, kernel / library {kd['ms'] / kd['library_ms']:.3f}; bounds: "
+          f"matrix {flops / BF16_FLOPS * 1e3:.4f} ms, ex2 {ex2 / (SFU_EX2_PER_CLOCK * clock) * 1e3:.4f} ms "
+          f"({ex2 / 1e9:.3f} G at {clock / 1e6:.0f} MHz)")
 
 
 def print_times(kernels: dict) -> None:
@@ -188,11 +244,10 @@ def plain_sam_attention():
 def tile_check(name: str, infer, imgs: np.ndarray) -> None:
     """Tile 0's instance map on the card against the port's CPU path on the
     same forward outputs (fixed-pass plain scans, fp32 filters)."""
-    from cellvit_tpu_torch.models.fused import forward_maps
     from cellvit_tpu_torch.ops.hv_postproc import instance_map_batch_maps
 
     x = torch.from_numpy((imgs[:1] - 0.5) / 0.5).to(infer.device, torch.bfloat16)
-    out = forward_maps(infer.model, x)
+    out = infer.forward_maps(x)
     maps = [out["np_prob"], out["hv0"], out["hv1"]]
     card_inst = instance_map_batch_maps(*maps).cpu()
     unresolved = int((card_inst > TILE * TILE // 2 + 1).sum())
@@ -212,6 +267,9 @@ def drive(name: str, infer, imgs: np.ndarray, per_batch, card: str, embed: int):
     returns the counts."""
     from cellvit_tpu_torch import _build
 
+    dtypes = {t.dtype for t in infer.model.state_dict().values() if t.is_floating_point()}
+    print(f"{name}: mixed precision {infer.mixed_precision}, parameters and buffers {dtypes}")
+    require(dtypes == {torch.float32}, f"{name}: mixed precision must keep fp32 parameters")
     t0 = time.perf_counter()
     infer._device_outputs(imgs, 40)
     print(f"{name}: warm-up batch {time.perf_counter() - t0:.3f} s")
@@ -271,7 +329,8 @@ def flash_bwd_phase(b: int, n: int, h: int, dqk: int, dv: int, scale: float, gen
     max_errs = [(a.float() - r_.float()).abs().max().item() for a, r_ in zip(grads, ref)]
     spread = (grads[0].float() - again[0].float()).abs().max().item()
     ulp = attention.bf16_ulp(grads[0].float().abs().max().item())
-    print(f"B8 fused flash backward ({b}, {n}, {h}, q/k {dqk}, v {dv}): max_abs_err dq/dk/dv "
+    print(f"B8 fused flash backward ({b}, {n}, {h}, q/k {dqk}, v {dv}; o and lse from B1): "
+          "max_abs_err dq/dk/dv "
           + ", ".join(f"{e:.3e}" for e in max_errs) + "; errors relative to each gradient "
           + "; ".join(f"{g}: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
                       for g, e in errs.items())
@@ -352,10 +411,10 @@ def ptxas_spills(text: str) -> dict:
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-            args = re.search(r"(\w+?)ILi(\d+)E((?:Li\d+E)*)", entry)
+            args = re.search(r"(\w+?)ILi(\d+)E((?:L[ib]\d+E)*)", entry)
             if args:
                 entry = f"{args.group(1)[-16:]}<{args.group(2)}" + "".join(
-                    f", {a}" for a in re.findall(r"Li(\d+)E", args.group(3))) + ">"
+                    f", {a}" for a in re.findall(r"L[ib](\d+)E", args.group(3))) + ">"
         elif "spill stores" in ln and entry is not None:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             spills[entry] = (nums[1], nums[2])
@@ -538,15 +597,14 @@ def max_abs(a, b) -> float:
 @torch.no_grad()
 def postproc_intermediates(infer, imgs: np.ndarray) -> dict:
     """The CellViT-256 batch's own postprocessing tensors, recomputed from
-    `forward_maps` with the port's public ops as `ops/hv_postproc.py`
+    `infer.forward_maps` with the port's public ops as `ops/hv_postproc.py`
     computes them on the card: root labels of np_prob ≥ 0.5, the blob mask
     `blb`, the relief `dist`, the compacted marker labels before and after
     their size filter."""
-    from cellvit_tpu_torch.models.fused import forward_maps
     from cellvit_tpu_torch.ops import cc, cc_cuda, filters
 
     x = torch.from_numpy(np.ascontiguousarray((imgs - infer.mean) / infer.std, np.float32))
-    out = forward_maps(infer.model, x.to(infer.device).to(infer.dtype))
+    out = infer.forward_maps(x.to(infer.device).to(infer.dtype))
     roots = cc_cuda.connected_components_cuda(out["np_prob"] >= 0.5, n_outer=3)
     blb = cc.remove_small_objects_window(roots, 10) > 0
     blbf = blb.float()
@@ -703,14 +761,15 @@ def conv_phase(infer, imgs: np.ndarray, kernels: dict, phase_launches: dict) -> 
 
     model = infer.model
     x = torch.from_numpy(np.ascontiguousarray((imgs - infer.mean) / infer.std, np.float32))
-    _, (p0, p1, p2, p3), z4 = model.encode_features(x.to(infer.device).to(infer.dtype))
-    br = model.nuclei_type_maps_decoder
-    y = br.bottleneck_upsampler(z4)
-    for stage, p in ((br.decoder3_upsampler, p3), (br.decoder2_upsampler, p2),
-                     (br.decoder1_upsampler, p1)):
-        y = fused._run_stage(stage, torch.cat([p, y], dim=1))
-    head = br.decoder0_header
-    inp = fused._run_stage(head[:1], torch.cat([p0, y], dim=1)).contiguous()
+    with infer.autocast():
+        _, (p0, p1, p2, p3), z4 = model.encode_features(x.to(infer.device).to(infer.dtype))
+        br = model.nuclei_type_maps_decoder
+        y = br.bottleneck_upsampler(z4)
+        for stage, p in ((br.decoder3_upsampler, p3), (br.decoder2_upsampler, p2),
+                         (br.decoder1_upsampler, p1)):
+            y = fused._run_stage(stage, torch.cat([p, y], dim=1))
+        head = br.decoder0_header
+        inp = fused._run_stage(head[:1], torch.cat([p0, y], dim=1)).contiguous()
     del p0, p1, p2, p3, z4, y
     w, b = fused.fold_bn(head[1], inp.dtype)  # OIHW
     model_out = F.relu(F.conv2d(inp, w, b, padding=1))
@@ -772,10 +831,13 @@ def main() -> int:
     for src, (sec, text) in report.items():
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         print(f"  {src}: {sec:.2f} s; " + " | ".join(regs))
-    if "flash_attn_bwd.cu" in report:
-        spills = ptxas_spills(report["flash_attn_bwd.cu"][1])
-        print("  flash_attn_bwd.cu spill bytes (stores, loads) per instantiation <KB, DV>: "
-              + ", ".join(f"{e}: {v}" for e, v in spills.items()))
+    for src, params in (("flash_attn.cu", "<KB, KS, DV, BK, bias, warpgroups, turns>"),
+                        ("relpos_attn.cu", "<KB, KS, DV, BK, bias, warpgroups, turns>"),
+                        ("flash_attn_bwd.cu", "<KB, DV>")):
+        if src in report:
+            spills = ptxas_spills(report[src][1])
+            print(f"  {src} spill bytes (stores, loads) per instantiation {params}: "
+                  + ", ".join(f"{e}: {v}" for e, v in spills.items()))
 
     kernels = {}
 
@@ -793,10 +855,8 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3e} (bound {attention.FLASH_BOUNDS[k]:g})" for k, v in errs.items()))
     require(attention.within(errs, attention.FLASH_BOUNDS), "flash kernel disagrees")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    b1_bound = bound_ms(
-        4 * BATCH * n_tok * heads * hd * 2 + BATCH * heads * n_tok * 4,
-        4.0 * BATCH * heads * n_tok * n_tok * hd,
-    )
+    b1_flops, b1_ex2 = 4.0 * BATCH * heads * n_tok * n_tok * hd, float(BATCH * heads * n_tok * n_tok)
+    b1_bound = bound_ms(4 * BATCH * n_tok * heads * hd * 2 + BATCH * heads * n_tok * 4, b1_flops, b1_ex2)
     kernels["flash_attention"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/flash_attn.cu",
         replaces="cellvit_tpu/ops/attention.py:32", max_abs_err=max_err,
@@ -805,6 +865,10 @@ def main() -> int:
         library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 20),
         bound=b1_bound,
     )
+    attention_times(f"B1 flash ({BATCH}, {n_tok}, {heads}, {hd})", kernels["flash_attention"],
+                    b1_flops, b1_ex2)
+    print(f"  B1 host µs per flash_attention call (enqueue, 200 calls): "
+          f"{host_us(lambda: attention.flash_attention(q, k, v)):.1f}")
     del qkv, q, k, v, o, po, lse, plse, qt, kt, vt
 
     # ---- B2-B4 segmented scans on blob masks + U shape + spiral
@@ -897,15 +961,19 @@ def main() -> int:
     max_err = check_attention("B6 rel-pos flash attention", o, po, attention.RELPOS_BOUNDS)
     bias = (bh[..., :, None] + bw[..., None, :]).reshape(BATCH, n, heads, n).transpose(1, 2).contiguous()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b6_flops, b6_ex2 = 4.0 * BATCH * heads * n * n * hd, float(BATCH * heads * n * n)
     kernels["flash_attention_relpos"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/relpos_attn.cu",
         replaces="cellvit_tpu/ops/attention.py:190", max_abs_err=max_err,
         ms=time_ms(lambda: attention.relpos_flash_attention(q, k, v, bh, bw), 10),
         plain_ms=time_ms(lambda: attention.relpos_attention_plain(q, k, v, bh, bw), 3),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias), 5),
-        bound=bound_ms(2 * (4 * q.numel() + bh.numel() + bw.numel()),
-                       4.0 * BATCH * heads * n * n * hd),
+        bound=bound_ms(2 * (4 * q.numel() + bh.numel() + bw.numel()), b6_flops, b6_ex2),
     )
+    attention_times(f"B6 rel-pos flash ({BATCH}, {n}, {heads}, {hd}), {side}×{side} grid",
+                    kernels["flash_attention_relpos"], b6_flops, b6_ex2)
+    print(f"  B6 host µs per relpos_flash_attention call (enqueue, 200 calls): "
+          f"{host_us(lambda: attention.relpos_flash_attention(q, k, v, bh, bw)):.1f}")
     del qkv, q, k, v, rh, rw, bh, bw, o, po, bias, qt, kt, vt
 
     # ---- B7 whole-window attention at a 224×256 tile's global blocks (14×16)
@@ -956,12 +1024,14 @@ def main() -> int:
         if routed is not None:
             require(torch.equal(routed, ox), f"B1 widened, {label}: the routed op differs")
         b_, n_, h_, d_ = qx.shape
-        bnd = bound_ms(2 * (2 * qx.numel() + 2 * vx.numel()) + 4 * b_ * h_ * n_,
-                       2.0 * b_ * h_ * n_ * n_ * (d_ + vx.shape[-1]))
+        flops = 2.0 * b_ * h_ * n_ * n_ * (d_ + vx.shape[-1])
+        bnd = bound_ms(2 * (2 * qx.numel() + 2 * vx.numel()) + 4 * b_ * h_ * n_, flops,
+                       float(b_ * h_ * n_ * n_))
+        kernel_ms = time_ms(lambda: attention.flash_attention(qx, kx, vx, scale=1.0), 20)
         print(f"B1 widened, {label}: q/k {tuple(qx.shape)}, v {tuple(vx.shape)}: max_abs_err "
               f"{(ox.float() - po.float()).abs().max().item():.3e}; errors relative to |o| "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f"; kernel_ms {time_ms(lambda: attention.flash_attention(qx, kx, vx, scale=1.0), 20):.4f}"
+              + f"; kernel_ms {kernel_ms:.4f} ({flops / kernel_ms / 1e9:.1f} TFLOP/s)"
               f" plain_ms {time_ms(lambda: attention.flash_attention_plain(qx, kx, vx, 1.0), 3):.4f}"
               f" bound_ms {bnd[0]:.4f} ({bnd[1]})")
         require(attention.within(errs, attention.FLASH_BOUNDS), f"B1 widened, {label}: disagrees")
@@ -1027,6 +1097,8 @@ def main() -> int:
     phase_launches = {}
     t0 = time.perf_counter()
     inter = postproc_intermediates(infer, imgs)
+    print("C4: INT_MAX pixels per tile in the compacted markers (ids the 3-pass compaction left "
+          f"unresolved): {(inter['markers'] == cc_cuda.INT_MAX).sum((1, 2)).tolist()}")
     size_filter_phases(inter, kernels, phase_launches)
     watershed_phase(inter, masks, kernels, phase_launches)
     del inter
@@ -1041,6 +1113,14 @@ def main() -> int:
     set_probe_weights(model)
     infer = CellSegmentationInference(model=model, run_conf=run_conf, mixed_precision=True,
                                       batch_size=BATCH, device="cuda")
+    params = list(infer.model.parameters())
+    recast = lambda: [p.to(torch.bfloat16) for p in params]
+    recast()
+    print(f"CellViT-SAM-H: autocast re-casts {sum(p.numel() for p in params) / 1e9:.4f} G fp32 "
+          f"parameters ({len(params)} tensors) to bf16 each forward: {queued_ms(recast):.3f} ms of "
+          f"device time back to back, {time_ms(recast, 5):.3f} ms between events as the host "
+          "enqueues them")
+    del params
     sam_launches = drive("CellViT-SAM-H path", infer, imgs, {
         "window_qkv_attention": 28, "flash_attention_relpos": 4, "connected_components": 2,
         "flood": 1, "propagate_min": 1,
@@ -1053,12 +1133,10 @@ def main() -> int:
     # attention on its plain version: each attention output then differs by
     # bf16 rounding (≈3e-3 of its size, the bounds above), and 32 residual
     # blocks carry that into the outputs, so they agree within PATH_L2.
-    from cellvit_tpu_torch.models.fused import forward_maps
-
     x = torch.from_numpy((imgs[:1, :SMALL_TILE[0], :SMALL_TILE[1]] - 0.5) / 0.5)
     x = x.to(dev, torch.bfloat16)
     _build.reset_launches()
-    out = forward_maps(infer.model, x, retrieve_tokens=True)
+    out = infer.forward_maps(x, retrieve_tokens=True)
     torch.cuda.synchronize()
     tile_launches = dict(_build.LAUNCHES)
     want = {"window_qkv_attention": 28, "window_attention": 4}
@@ -1068,7 +1146,7 @@ def main() -> int:
         launches[name] += n
     _build.reset_launches()
     with plain_sam_attention():
-        ref = forward_maps(infer.model, x, retrieve_tokens=True)
+        ref = infer.forward_maps(x, retrieve_tokens=True)
     require(all(n == 0 for n in _build.LAUNCHES.values()), "the plain forward launched a kernel")
     require(out["tokens"].shape == (1, gh, gw, 1280), "unexpected token shape at 224×256")
     for key in ("tokens", "tissue_types", "type_map_cmajor", "np_prob", "hv0", "hv1"):

@@ -84,9 +84,10 @@ def test_flash_custom_scale(rng):
 
 
 def _tiled_flash(q, k, v, fault, tile=64):
-    """The CUDA kernel's algorithm in fp32: 64-key tiles with a running max
-    and sum, p rounded to bf16 before p·v, o rounded to bf16. `fault` plants
-    one of the bugs that FLASH_BOUNDS must catch."""
+    """The CUDA kernel's algorithm in fp32: key tiles with a running max and
+    sum, keys past N masked in the ragged last tile, p rounded to bf16 before
+    p·v, o rounded to bf16. `fault` plants one of the bugs that FLASH_BOUNDS
+    must catch."""
     b, n, h, d = q.shape
     n_pad = -(-n // tile) * tile
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
@@ -107,13 +108,16 @@ def _tiled_flash(q, k, v, fault, tile=64):
     return (acc / l).transpose(1, 2).to(torch.bfloat16), (m + torch.log(l))[..., 0]
 
 
+@pytest.mark.parametrize("tile", [64, 128])
 @pytest.mark.parametrize("fault", ["none", "no_rescale", "unmasked_pad", "dropped_key"])
-def test_flash_bounds_separate_rounding_from_kernel_faults(fault):
-    """At 1025 tokens (|o| ≈ 0.04) the bounds that hold the CUDA kernel to its
-    plain version accept bf16 rounding and reject each planted fault."""
+def test_flash_bounds_separate_rounding_from_kernel_faults(fault, tile):
+    """At 1025 tokens (|o| ≈ 0.04; one key in the last tile, as 4097 has at
+    the encoder's shape) the bounds that hold the CUDA kernel to its plain
+    version accept bf16 rounding and reject each planted fault, at the
+    earlier 64-key tiles and at the Hopper kernel's 128-key tiles."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv(np.random.default_rng(11), 1, 1025, 2, 64))
-    o, lse = _tiled_flash(q, k, v, fault)
+    o, lse = _tiled_flash(q, k, v, fault, tile)
     errs = flash_errors(o, lse, *flash_attention_plain(q, k, v))
     assert all(errs[key] <= bound for key, bound in FLASH_BOUNDS.items()) == (fault == "none"), errs
 

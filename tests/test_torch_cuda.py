@@ -96,8 +96,15 @@ def test_window_qkv_kernel_matches_plain(cuda, c, heads, window, bias):
     assert attention.within(errs, attention.WIN_QKV_BOUNDS), errs
 
 
-@pytest.mark.parametrize("grid_hw,heads,d", [((32, 32), 2, 80), ((64, 64), 2, 64), ((16, 32), 3, 80)])
+@pytest.mark.parametrize("grid_hw,heads,d", [((32, 32), 2, 80), ((64, 64), 2, 64), ((16, 32), 3, 80),
+                                             ((64, 16), 2, 64), ((128, 8), 1, 80), ((160, 48), 1, 64),
+                                             ((32, 32), 1, 64), ((64, 8), 1, 64), ((32, 16), 2, 80),
+                                             ((160, 48), 1, 80)])
 def test_relpos_flash_kernel_matches_plain(cuda, grid_hw, heads, d):
+    """B6 on every grid width the kernel holds in registers (64, 32, 16, 8)
+    and on one it gathers per logit (48: a 160×48 grid, which the routing
+    also sends to B6), each at D 64 and 80: with SAM-H's 64×64 grid at D 80
+    in `chip_smoke.py`, every instantiation `relpos_attn.cu` can launch."""
     g = torch.Generator(device=cuda).manual_seed(grid_hw[0] + d)
     n = grid_hw[0] * grid_hw[1]
     qkv = _bf16(g, (2, n, 3, heads, d), cuda)
@@ -156,8 +163,13 @@ def _wide(g, cuda, b, n, h, dqk, dv):
 
 
 @pytest.mark.parametrize("n,dqk,dv", [(400, 120, 80), (1024, 208, 80), (513, 192, 64),
-                                      (130, 80, 80), (97, 72, 64)])
+                                      (130, 80, 80), (97, 72, 64), (257, 224, 64), (200, 160, 80),
+                                      (300, 64, 80)])
 def test_wide_flash_kernel_matches_plain(cuda, n, dqk, dv):
+    """B1 on q′/k′ of the rel-pos routes' widths: with the encoder's 64-wide
+    heads above, every instantiation `flash_attn.cu` can launch (q/k
+    buckets of 64, 128, 192 and 256 columns, each against v 64 and 80
+    wide)."""
     q, k, v = _wide(torch.Generator(device=cuda).manual_seed(n + dqk), cuda, 1, n, 2, dqk, dv)
     before = _build.LAUNCHES["flash_attention"]
     o, lse = attention.flash_attention(q, k, v, scale=1.0, return_lse=True)

@@ -1,6 +1,7 @@
 """Port's device stage of WSI inference against the JAX composition of the
 same stage, the package's independence from JAX, and its device rules."""
 
+import copy
 import re
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from cellvit_tpu.ops.instance_stats import instance_stats_batch as jax_stats
 from cellvit_tpu.ops.instance_stats import relabel_consecutive as jax_relabel
 from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference
 from cellvit_tpu_torch.models.cellvit import CellViT
+from cellvit_tpu_torch.models.fused import forward_maps
 from cellvit_tpu_torch.synthetic import set_probe_weights
 
 # one intra-op thread each: the suite runs as parallel pytest workers
@@ -84,6 +86,54 @@ def test_device_outputs_match_jax_composition():
     assert inst.shape == (2, 128, 128) and tokens.shape == (2, 8, 8, 64)
     assert (stats["valid"].sum(1) >= 5).all()  # the maps hold real nuclei
     assert infer.last_watershed_passes.shape == (2,)
+
+
+def test_mixed_precision_keeps_fp32_weights_and_matches_jax_bf16():
+    """`mixed_precision=True` keeps the parameters and BatchNorm statistics
+    in fp32 and computes in bf16 under autocast, folding BN in fp32: the
+    JAX package's `model.clone(dtype=bfloat16)`. The forward maps of the
+    tiny CellViT, with every BN statistic randomised (seed 2) so that the
+    folds matter, stand against JAX's bf16 `fused_forward_maps` on the same
+    fp32 weights. The two still round activations to bf16 at different
+    places (accumulation order, fused bias adds, GELU): 1.5e-4 max and
+    6.9e-7 mean on np_prob, 1.5e-2 max and 9.1e-5 mean on hv. The bounds sit
+    3-14× above that and 3.6-7× below what weights stored in bf16 give (np_prob
+    1.4e-2 / 3.6e-5, hv 9.4e-2 / 2.3e-3): the same forward on a bf16 copy
+    of the model, which folds BN from rounded statistics, must break the
+    np_prob bounds. `-s` prints both sets of errors."""
+    model, jm, _ = _probe_model()
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.copy_(torch.randn(mod.running_mean.shape, generator=g) * 0.2)
+                mod.running_var.copy_(torch.rand(mod.running_var.shape, generator=g) * 1.5 + 0.5)
+    variables = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()}, False)
+    stored_bf16 = copy.deepcopy(model).to(torch.bfloat16).eval()
+    infer = CellSegmentationInference(model=model, run_conf=RUN_CONF, mixed_precision=True,
+                                      device="cpu")
+    assert {t.dtype for t in infer.model.state_dict().values() if t.is_floating_point()} == {
+        torch.float32}
+    x = (_tiles(2, 256) - np.asarray([0.6, 0.5, 0.4], np.float32)) / np.asarray(
+        [0.3, 0.25, 0.2], np.float32)
+    xt = torch.from_numpy(x).to(infer.dtype)
+    got = infer.forward_maps(xt)
+    with torch.no_grad():
+        rounded = forward_maps(stored_bf16, xt)
+    want = fused_forward_maps(jm.clone(dtype=jnp.bfloat16), variables, jnp.asarray(x))
+    bounds = {"np_prob": (2e-3, 1e-5), "hv0": (4e-2, 3e-4), "hv1": (4e-2, 3e-4)}
+    for key, (max_bound, mean_bound) in bounds.items():
+        assert got[key].dtype == torch.float32 and want[key].dtype == jnp.float32
+        err = np.abs(got[key].numpy() - np.asarray(want[key]))
+        err_rounded = np.abs(rounded[key].float().numpy() - np.asarray(want[key]))
+        print(f"{key}: max {err.max():.3e}, mean {err.mean():.3e}; weights stored in bf16: "
+              f"max {err_rounded.max():.3e}, mean {err_rounded.mean():.3e}")
+        assert err.max() <= max_bound and err.mean() <= mean_bound, (key, err.max(), err.mean())
+        if key == "np_prob":
+            assert err_rounded.max() > max_bound and err_rounded.mean() > mean_bound, (
+                err_rounded.max(), err_rounded.mean())
+    assert got["type_map_cmajor"].dtype == torch.bfloat16
+    assert {p.dtype for p in infer.model.parameters()} == {torch.float32}
 
 
 def test_package_imports_no_jax():

@@ -328,6 +328,39 @@ def _emulated_relpos(q, k, v, bh, bw, fault):
     return _bf(o).transpose(1, 2)
 
 
+def _emulated_relpos_tiled(q, k, v, bh, bw, fault, tile=128):
+    """B6's arithmetic as the Hopper kernel plays it: 128-key tiles with a
+    running max and sum; each accumulator column c of a tile reads the Bw
+    value its thread holds in a register for the whole key loop, grid
+    column (8·((c / 8) mod 8) + c mod 8) mod gw, and Bh of its 8-key group's
+    grid row; p rounded to bf16 before P·V, o at the end. A Bw column offset
+    by a whole key tile would land on the same grid column (gw divides the
+    tile), which is why the registers may hold it; the faults plant a
+    register one thread off (2 columns) and Bh one key tile ahead."""
+    b, n, h, d = q.shape
+    gh, gw = bh.shape[-1], bw.shape[-1]
+    qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
+    bhf, bwf = bh.float().transpose(1, 2), bw.float().transpose(1, 2)
+    c = torch.arange(tile)
+    reg_col = (8 * ((c // 8) % 8) + c % 8) % gw
+    if fault == "bw_register_one_thread_off":
+        reg_col = (reg_col + 2) % gw
+    bw_reg = bwf[..., reg_col]
+    m = torch.full((b, h, n, 1), -np.inf)
+    l, acc = torch.zeros((b, h, n, 1)), torch.zeros((b, h, n, d))
+    for k0 in range(0, n, tile):
+        row = (k0 + 8 * (c // 8)) // gw
+        if fault == "bh_row_one_tile_ahead":
+            row = (row + tile // gw) % gh
+        s = qh @ kh[..., k0:k0 + tile, :].transpose(-1, -2) * d**-0.5 + bhf[..., row] + bw_reg
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _bf(p) @ vh[..., k0:k0 + tile, :]
+        m = m_new
+    return _bf(acc / l).transpose(1, 2)
+
+
 def _emulated_window(q, k, v, fault):
     """B7's arithmetic on 64-key tiles: the keys past N in the last tile are
     zero-filled and masked, unless the fault leaves them in (zero logits)."""
@@ -360,6 +393,8 @@ def _sam_inputs(seed, side_grid=20, window=14, c=320, nh=4):
     ("window_qkv", "none"), ("window_qkv", "bias_from_scaled_q"),
     ("window_qkv", "masked_padding"),
     ("relpos", "none"), ("relpos", "swapped_bh_bw"), ("relpos", "index_off_by_one"),
+    ("relpos_tiled", "none"), ("relpos_tiled", "bw_register_one_thread_off"),
+    ("relpos_tiled", "bh_row_one_tile_ahead"),
     ("window", "none"), ("window", "unmasked_padded_keys"),
 ])
 def test_sam_bounds_separate_rounding_from_kernel_faults(kernel, fault):
@@ -374,14 +409,15 @@ def test_sam_bounds_separate_rounding_from_kernel_faults(kernel, fault):
         bounds = attention.WIN_QKV_BOUNDS
     else:
         g = torch.Generator().manual_seed(1)
-        grid_hw = (32, 32) if kernel == "relpos" else (14, 16)
+        grid_hw = (14, 16) if kernel == "window" else (32, 32)
         n, d = grid_hw[0] * grid_hw[1], 80
         q, k, v = (torch.randn((1, n, 2, d), generator=g).to(torch.bfloat16) for _ in range(3))
         rh = (torch.randn((grid_hw[0], grid_hw[0], d), generator=g) * 0.1).to(torch.bfloat16)
         rw = (torch.randn((grid_hw[1], grid_hw[1], d), generator=g) * 0.1).to(torch.bfloat16)
         bh, bw = attention.rel_pos_bias(q, rh, rw, grid_hw)
-        if kernel == "relpos":
-            got = _emulated_relpos(q, k, v, bh, bw, fault)
+        if kernel.startswith("relpos"):
+            emulate = _emulated_relpos_tiled if kernel == "relpos_tiled" else _emulated_relpos
+            got = emulate(q, k, v, bh, bw, fault)
             ref = attention.relpos_attention_plain(q, k, v, bh, bw)
             bounds = attention.RELPOS_BOUNDS
         else:
