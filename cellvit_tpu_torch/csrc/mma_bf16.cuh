@@ -1,5 +1,4 @@
-// Warp-level bf16 tensor-core helpers of the `mma.sync` kernels (B5, B7,
-// B12).
+// Warp-level bf16 tensor-core helpers of the `mma.sync` kernels (B7, B12).
 //
 // `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators. Fragment
 // layout (g = lane / 4, t = lane % 4):
@@ -53,23 +52,6 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const __nv_bf
                                        int ld, int n0, int k0, int g, int t) {
   b0 = ld32(bt + (n0 + g) * ld + k0 + 2 * t);
   b1 = ld32(bt + (n0 + g) * ld + k0 + 8 + 2 * t);
-}
-
-// 16-byte asynchronous copy global → shared; zero-fills the 16 bytes when
-// `valid` is false (the global address is then not read).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Wait until at most `N` of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Max and sum over the four lanes of a quad (the lanes that share a row).

@@ -108,7 +108,26 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // ------------------------------------------------------------------ TMA
 
-// Coordinates are (column, row, head, batch) of a 4-D (D, N, H, B) map.
+// Loads of one box of a 2-, 3-, 4- or 5-D map at element coordinates
+// (dimension 0 first); a 4-D (D, N, H, B) map takes (column, row, head, batch).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -117,6 +136,39 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Store one box from shared memory to a 2-D map (rows and columns past the
+// map's dimensions are not written), in the current bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N bulk groups are pending: READ = true only until their
+// shared-memory sources have been read.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // libcuda's tensor-map encoder (`cuTensorMapEncodeTiled`), fetched through
@@ -147,21 +199,46 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A bf16 map of `rank` (2-5) dimensions, dims[0] of unit stride and
+// dims[i] of element stride strides[i - 1] (multiples of 8, in any order), cut
+// into boxes of box[0] = 64 columns (one 128-byte row) × box[1..]; 128-byte
+// swizzle; reads past any dimension fill zeros. False if refused.
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                     const long long* strides, const int* box) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr || rank < 2 || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], unit[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    unit[i] = 1;
+    if (i > 0) st[i - 1] = (cuuint64_t)strides[i - 1] * 2;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, st, bx,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A bf16 (D, N, H, B) map with element strides (s_n, s_h, s_b) and unit
-// stride over D, cut into boxes of 64 columns × `rows` rows of one head,
-// 128-byte swizzle; reads past D or N fill zeros. False if refused.
+// stride over D, cut into boxes of 64 columns × `rows` rows of one head.
 inline bool bf16_map_4d(CUtensorMap* map, const void* base, int D, int N, int H, int B,
                         long long s_n, long long s_h, long long s_b, int rows) {
-  EncodeTiledFn encode = encode_tiled_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_n * 2, (cuuint64_t)s_h * 2, (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[4] = {D, N, H, B}, strides[3] = {s_n, s_h, s_b};
+  const int box[4] = {64, rows, 1, 1};
+  return bf16_map(map, base, 4, dims, strides, box);
+}
+
+// The current device's SM count, queried once; 0 if the query fails.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -224,6 +301,29 @@ template <int N, int TA, int TB>
 struct SS;
 
 template <int TA, int TB>
+struct SS<256, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32), SM90_D8(40),
+          SM90_D8(48), SM90_D8(56), SM90_D8(64), SM90_D8(72), SM90_D8(80), SM90_D8(88),
+          SM90_D8(96), SM90_D8(104), SM90_D8(112), SM90_D8(120)
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
 struct SS<128, TA, TB> {
   static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b, int acc) {
     asm volatile(
@@ -267,10 +367,40 @@ struct SS<32, TA, TB> {
   }
 };
 
+template <int TA, int TB>
+struct SS<16, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : SM90_D8(0)
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
 // d (64×N) += A·B with A (64×16) in registers; TB = 1 reads B MN-major.
 // (scale-d is a predicate operand: set to 1, the product accumulates.)
 template <int N, int TB>
 struct RS;
+
+template <int TB>
+struct RS<128, TB> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32), SM90_D8(40),
+          SM90_D8(48), SM90_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+  }
+};
 
 template <int TB>
 struct RS<64, TB> {

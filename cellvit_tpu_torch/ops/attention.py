@@ -10,7 +10,9 @@ PyTorch version of the same function on a CPU tensor, and each a
   be wider than v. Its backward is B8 (`csrc/flash_attn_bwd.cu`), one fused
   kernel for the JAX package's B8a (dq) and B8b (dk/dv).
 - `window_qkv_attention` (B5, `csrc/win_qkv_attn.cu`): the SAM windowed
-  blocks' qkv projection and decomposed rel-pos attention, fused per window.
+  blocks' qkv projection and decomposed rel-pos attention, as three wgmma
+  kernels: the projection over all windows (`win_qkv_proj`), the bias terms
+  Bh/Bw, and `csrc/flash_fwd_sm90.cuh`'s attention on the qkv buffer.
 - `relpos_flash_attention` (B6, `csrc/relpos_attn.cu`): flash attention with
   the decomposed rel-pos bias added to each logits tile, for SAM's global
   blocks.
@@ -41,6 +43,8 @@ FLASH_V_DIMS = (64, 80)
 FLASH_MAX_QK = 256
 #: head dims of the SAM kernels B5-B7: SAM-B/L use 64, SAM-H 80
 SAM_HEAD_DIMS = (64, 80)
+#: B5's projection stages its bias in shared memory: 3C ≤ 4096 (SAM-H: 3840)
+WIN_QKV_MAX_NC = 4096
 
 #: Bounds of the bf16 kernel's result against the fp32 plain version, in the
 #: units of `flash_errors`. Over N keys of unit-variance logits |o| is only
@@ -64,10 +68,13 @@ FLASH_BOUNDS = {"max": 1e-2, "mean": 1e-2, "l2": 5e-3, "lse": 1e-3}
 FLASH_BWD_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 1e-2}
 
 #: B5 against its fp32 plain version, relative to |o| (`attn_errors`). The
-#: kernel rounds q, k and v to bf16 after the fp32 projection, then p and o:
-#: on SAM-H-like inputs `tests/test_torch_sam.py` plays these roundings to
-#: 3.1e-3 in "l2", 2.7e-3 in "mean" and 5.7e-3 in "max". A bias from the
-#: scaled q, or masked zero-padded window tokens, gives ≥ 0.56 in "l2".
+#: kernels round qkv to bf16 after the fp32 projection and bias, Bh/Bw (base
+#: 2) and q·scale·log2(e) to bf16, then p and o: on SAM-H-like inputs
+#: `tests/test_torch_sam.py` plays these roundings to 3.7e-3 in "l2", 3.1e-3
+#: in "mean" and 7.3e-3 in "max". A bias from the scaled q, masked
+#: zero-padded window tokens, the output one head off, k and v swapped, Bh's
+#: grid row taken per 8-key group, or the ragged tile's keys past N left
+#: unmasked give ≥ 0.13 in "l2".
 WIN_QKV_BOUNDS = {"max": 3e-2, "mean": 1.2e-2, "l2": 1e-2}
 #: B6, relative to |o|. Bh/Bw arrive in bf16 (as in the JAX package) and p
 #: and o are rounded to bf16: 2.2e-3 in "l2", 4.6e-3 in "max" on a 32×32
@@ -347,15 +354,62 @@ def window_qkv_attention_plain(
     return torch.einsum("whqk,wkhd->wqhd", p, v).reshape(nw, n, c).to(x.dtype)
 
 
-def _window_qkv_attention_cuda(x, w, b, rel_pos_h, rel_pos_w, num_heads: int) -> torch.Tensor:
+def win_qkv_proj_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The projection of B5's first kernel: x·w + b over (..., C) rows with
+    w (C, 3C), fp32 products and fp32 bias, rounded once to x's dtype."""
+    out = x.float() @ w.float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def win_qkv_terms_plain(q: torch.Tensor, rel_pos_h: torch.Tensor,
+                        rel_pos_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5's bias terms of (NW, N, H, D) q on its side × side window: Bh and
+    Bw (`rel_pos_bias`) with fp32 products, rounded once to q's dtype (the
+    kernel's are these times log2(e))."""
+    side = rel_pos_h.shape[0]
+    bh, bw = rel_pos_bias(q.float(), rel_pos_h.float(), rel_pos_w.float(), (side, side))
+    return bh.to(q.dtype), bw.to(q.dtype)
+
+
+def win_qkv_proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """B5's projection alone, (M, C) x times (C, 3C) w (a transposed view of
+    the qkv Linear's weight) plus b: the kernel on a CUDA tensor (bf16, C a
+    multiple of 8), `win_qkv_proj_plain` on a CPU one. Not differentiable."""
+
+    def kernel(x, w, b):
+        wt = w.t().contiguous()
+        for name, t in (("x", x), ("the qkv weight", wt)):
+            _check_rows("window qkv projection", t, name)
+        if (x.dim() != 2 or not x.is_contiguous() or wt.shape[1] != x.shape[1] or wt.shape[0] % 8
+                or wt.shape[0] > WIN_QKV_MAX_NC):
+            raise ValueError(f"window qkv projection takes contiguous (M, C) x and (C, NC) w, "
+                             f"NC ≤ {WIN_QKV_MAX_NC}; got {tuple(x.shape)}, {tuple(w.shape)}")
+        bias = None if b is None else b.float().contiguous()
+        out = torch.empty((x.shape[0], wt.shape[0]), dtype=x.dtype, device=x.device)
+        fn = _build.bind("win_qkv_attn.cu", "win_qkv_proj", "ppppiii")
+        err = fn(x.data_ptr(), wt.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                 out.data_ptr(), x.shape[0], x.shape[1], wt.shape[0], _build.stream_of(x))
+        _build.check(err, "win_qkv_proj")
+        return out
+
+    return _on_device(kernel, win_qkv_proj_plain, x, x, w, b)
+
+
+def _window_qkv_attention_launch(x, w, b, rel_pos_h, rel_pos_w, num_heads: int):
+    """B5's three kernels on a CUDA tensor: returns (o, qkv, Bh·log2 e, Bw·log2 e),
+    the last three the scratch buffers the attention read: (NW·N, 3C) and
+    (NW, N, H, 16) (terms past the side zero)."""
     nw, n, c = x.shape
     hd = c // num_heads
     side = rel_pos_h.shape[0]
     if (hd not in SAM_HEAD_DIMS or hd * num_heads != c or side * side != n or n > 256
-            or c % 32 or w.shape != (c, 3 * c)):
+            or c % 32 or 3 * c > WIN_QKV_MAX_NC or w.shape != (c, 3 * c)):
         raise ValueError(
-            f"window qkv kernel takes (NW, side², C) windows with side² ≤ 256, C a "
-            f"multiple of 32 and head dim in {SAM_HEAD_DIMS}; got x {tuple(x.shape)}, "
+            f"window qkv kernel takes (NW, side², C) windows with side² ≤ 256, C ≤ "
+            f"{WIN_QKV_MAX_NC // 3} a multiple of 32 and head dim in {SAM_HEAD_DIMS}; "
+            f"got x {tuple(x.shape)}, "
             f"w {tuple(w.shape)}, {num_heads} heads, tables {tuple(rel_pos_h.shape)}"
         )
     wt = w.t().contiguous()  # (3C, C): the qkv Linear's own weight layout
@@ -363,19 +417,22 @@ def _window_qkv_attention_cuda(x, w, b, rel_pos_h, rel_pos_w, num_heads: int) ->
     _check_rows("window qkv", wt, "the qkv weight")
     if not x.is_contiguous():
         raise ValueError("window qkv kernel needs contiguous x")
-    bias = b.float().contiguous() if b is not None else None
+    bias = None if b is None else b.float().contiguous()
     rh = rel_pos_h.to(torch.bfloat16).contiguous()
     rw = rel_pos_w.to(torch.bfloat16).contiguous()
+    qkv = torch.empty((nw * n, 3 * c), dtype=x.dtype, device=x.device)
+    bh = torch.empty((nw, n, num_heads, 16), dtype=x.dtype, device=x.device)
+    bw = torch.empty_like(bh)
     o = torch.empty_like(x)
-    fn = _build.bind("win_qkv_attn.cu", "win_qkv_attn_fwd", "ppppppiiiiif")
+    fn = _build.bind("win_qkv_attn.cu", "win_qkv_attn_fwd", "pppppppppiiiiif")
     _build.LAUNCHES["window_qkv_attention"] += 1
     err = fn(
-        x.data_ptr(), wt.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        rh.data_ptr(), rw.data_ptr(), o.data_ptr(), nw, n, c, num_heads, side,
-        float(hd**-0.5), _build.stream_of(x),
+        x.data_ptr(), wt.data_ptr(), 0 if bias is None else bias.data_ptr(), rh.data_ptr(),
+        rw.data_ptr(), qkv.data_ptr(), bh.data_ptr(), bw.data_ptr(), o.data_ptr(), nw, n, c,
+        num_heads, side, float(hd**-0.5), _build.stream_of(x),
     )
     _build.check(err, "win_qkv_attn_fwd")
-    return o
+    return o, qkv, bh, bw
 
 
 def window_qkv_attention(
@@ -402,7 +459,8 @@ class _WindowQkvAttention(torch.autograd.Function):
         ctx.save_for_backward(x, w, b, rel_pos_h, rel_pos_w)
         ctx.num_heads = num_heads
         args = (x, w, b, rel_pos_h, rel_pos_w, num_heads)
-        return _on_device(_window_qkv_attention_cuda, window_qkv_attention_plain, x, *args)
+        return _on_device(lambda *a: _window_qkv_attention_launch(*a)[0], window_qkv_attention_plain,
+                          x, *args)
 
     @staticmethod
     def backward(ctx, do):

@@ -8,15 +8,18 @@
    shapes its path gives it: flash attention (8, 4097, 6, 64) bf16 within a
    bf16 output bound; the segmented-scan kernels on (8, 1024, 1024) blob
    masks with an L/U shape and a spiral that 3 passes do not converge,
-   exactly; SAM-H's fused window qkv attention on 200 windows of 196 tokens
-   (C = 1280), its direct-bias flash attention on (8, 4096, 16, 80) and its
-   whole-window attention on a 14×16 grid, each within its bf16 bound.
+   exactly; SAM-H's window qkv attention (B5) on 200 windows of 196 tokens
+   (C = 1280), and on SAM-B's and SAM-L's widths (head dim 64), its
+   direct-bias flash attention on (8, 4096, 16, 80) and its whole-window
+   attention on a 14×16 grid, each within its bf16 bound. B5's phase also
+   times its projection kernel beside `torch.matmul` of the same product
+   and its three kernels by `torch.profiler`.
    Each phase times the kernel, the plain version and, where one exists, one
    PyTorch library call of the same function, beside the least time the card
    could take (for the attention kernels also their exponentials over the
-   SFUs' rate at the card's maximum SM clock). B1 and B6, the wgmma/TMA
-   flash forwards, also print their TFLOP/s and host µs per call, and the
-   build prints the ptxas spill bytes of every flash instantiation.
+   SFUs' rate at the card's maximum SM clock). B1, B5 and B6, on wgmma and
+   TMA, also print their TFLOP/s and host µs per call, and the build prints
+   the ptxas spill bytes of every instantiation of theirs and of B8.
 4. Drives the main paths through `CellSegmentationInference` on batches of
    8 × 1024² synthetic blob tiles, bf16, one warm-up batch and timed
    batches each: a full-width CellViT-256, then a full-width CellViT-SAM-H
@@ -404,17 +407,33 @@ def flash_bwd_timing(label: str, phase, scale: float, kernels=None):
             library_ms=ok[best] if best else None, bound=bnd)
 
 
+def kernel_name(entry: str) -> str:
+    """A mangled kernel entry as its name and integer template arguments,
+    e.g. `flash_fwd_kernel<2, 5, 80, 128, -1, 2, 0>`: the first
+    length-prefixed name in it that ends in "kernel"."""
+    i = 0
+    while i < len(entry):
+        m = re.match(r"\d+", entry[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        name = entry[j:j + int(m.group())]
+        if name.endswith("kernel"):
+            args = re.match(r"I((?:L[ib]n?\d+E)*)E", entry[j + len(name):])
+            vals = re.findall(r"L[ib](n?\d+)E", args.group(1)) if args else []
+            return name + (f"<{', '.join(v.replace('n', '-') for v in vals)}>" if vals else "")
+        i = j + len(name)
+    return entry
+
+
 def ptxas_spills(text: str) -> dict:
-    """{kernel entry: (spill store bytes, spill load bytes)} from `-Xptxas -v`;
-    a template kernel's entry is named by its integer arguments."""
+    """{kernel: (spill store bytes, spill load bytes)} from `-Xptxas -v`, each
+    kernel named by `kernel_name`."""
     spills, entry = {}, None
     for ln in text.splitlines():
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1]
-            args = re.search(r"(\w+?)ILi(\d+)E((?:L[ib]\d+E)*)", entry)
-            if args:
-                entry = f"{args.group(1)[-16:]}<{args.group(2)}" + "".join(
-                    f", {a}" for a in re.findall(r"L[ib](\d+)E", args.group(3))) + ">"
+            entry = kernel_name(ln.split("'")[1])
         elif "spill stores" in ln and entry is not None:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             spills[entry] = (nums[1], nums[2])
@@ -833,7 +852,9 @@ def main() -> int:
         print(f"  {src}: {sec:.2f} s; " + " | ".join(regs))
     for src, params in (("flash_attn.cu", "<KB, KS, DV, BK, bias, warpgroups, turns>"),
                         ("relpos_attn.cu", "<KB, KS, DV, BK, bias, warpgroups, turns>"),
-                        ("flash_attn_bwd.cu", "<KB, DV>")):
+                        ("flash_attn_bwd.cu", "<KB, DV>"),
+                        ("win_qkv_attn.cu", "flash <KB, KS, DV, BK, bias (-1: EXPAND), warpgroups, "
+                                            "turns>; terms <D>")):
         if src in report:
             spills = ptxas_spills(report[src][1])
             print(f"  {src} spill bytes (stores, loads) per instantiation {params}: "
@@ -919,34 +940,70 @@ def main() -> int:
     )
     del fg, lab, plab, seed, open_, reach, lab_fg, rank_seed, pm
 
-    # ---- B5 fused window qkv attention at SAM-H's windowed blocks: 8 tiles'
-    # 64×64 token grids of LN'd-like tokens cut into 200 zero-padded windows
-    c, heads, hd, win = 1280, 16, 80, 14
+    # ---- B5 window qkv attention at SAM-H's windowed blocks: 8 tiles' 64×64
+    # token grids of LN'd-like tokens cut into 200 zero-padded windows; then
+    # SAM-B's and SAM-L's widths (head dim 64) on 2 tiles
     gen = torch.Generator(device=dev).manual_seed(1)
-    grid = torch.randn((BATCH, TILE // 16, TILE // 16, c), generator=gen, device=dev)
-    x = window_partition(grid, win)[0].reshape(-1, win * win, c).to(torch.bfloat16).contiguous()
-    del grid
-    w_lin = (torch.randn((3 * c, c), generator=gen, device=dev) * c**-0.5).to(torch.bfloat16)
-    b_lin = (torch.randn(3 * c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-    rh, rw = ((torch.randn((win, win, hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-              for _ in range(2))
-    args = (x, w_lin.t(), b_lin, rh, rw, heads)  # the qkv Linear's weight, as the model passes it
-    o = attention.window_qkv_attention(*args)
-    po = attention.window_qkv_attention_plain(*args)
-    max_err = check_attention("B5 window qkv attention", o, po, attention.WIN_QKV_BOUNDS)
+    for label, c, heads, n_tiles in (("SAM-H", 1280, 16, BATCH), ("SAM-B", 768, 12, 2),
+                                     ("SAM-L", 1024, 16, 2)):
+        hd, win = c // heads, 14
+        grid = torch.randn((n_tiles, TILE // 16, TILE // 16, c), generator=gen, device=dev)
+        x = window_partition(grid, win)[0].reshape(-1, win * win, c).to(torch.bfloat16).contiguous()
+        del grid
+        w_lin = (torch.randn((3 * c, c), generator=gen, device=dev) * c**-0.5).to(torch.bfloat16)
+        b_lin = (torch.randn(3 * c, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        rh, rw = ((torch.randn((win, win, hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+                  for _ in range(2))
+        args = (x, w_lin.t(), b_lin, rh, rw, heads)  # the qkv Linear's weight, as the model passes it
+        o = attention.window_qkv_attention(*args)
+        po = attention.window_qkv_attention_plain(*args)
+        max_err = check_attention(f"B5 window qkv attention, {label} {tuple(x.shape)}, {heads} × {hd}",
+                                  o, po, attention.WIN_QKV_BOUNDS)
+        if label == "SAM-H":
+            sam_h = (x, w_lin, b_lin, rh, rw, args, max_err)
+        del x, w_lin, b_lin, rh, rw, args, o, po
+    x, w_lin, b_lin, rh, rw, args, max_err = sam_h
+    del sam_h
+    c, heads, hd, win = 1280, 16, 80, 14
     nw, n = x.shape[:2]
+    b5 = lambda: attention.window_qkv_attention(*args)
+    b5_proj = 2.0 * nw * n * c * 3 * c
+    b5_flops = b5_proj + 4.0 * nw * heads * n * n * hd + 4.0 * nw * heads * n * win * hd
     kernels["window_qkv_attention"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/win_qkv_attn.cu",
         replaces="cellvit_tpu/ops/attention.py:862", max_abs_err=max_err,
-        ms=time_ms(lambda: attention.window_qkv_attention(*args), 10),
+        ms=time_ms(b5, 10),
         plain_ms=time_ms(lambda: attention.window_qkv_attention_plain(*args), 3),
         library_ms=None,
         bound=bound_ms(
-            2 * (2 * x.numel() + w_lin.numel() + b_lin.numel() + rh.numel() + rw.numel()),
-            2.0 * nw * n * c * 3 * c + 4.0 * nw * heads * n * n * hd + 4.0 * nw * heads * n * win * hd,
-        ),
+            2 * (2 * x.numel() + w_lin.numel() + b_lin.numel() + rh.numel() + rw.numel()), b5_flops),
     )
-    del x, w_lin, b_lin, rh, rw, args, o, po
+    kd = kernels["window_qkv_attention"]
+    ms2 = time_ms(b5, 10)
+    print(f"  B5 ({nw}, {n}, {c}, {heads} × {hd}): kernel_ms {kd['ms']:.4f} / {ms2:.4f} "
+          f"({b5_flops / kd['ms'] / 1e9:.1f} / {b5_flops / ms2 / 1e9:.1f} TFLOP/s, "
+          f"{b5_flops / 1e9:.1f} GFLOP), bound_ms {kd['bound'][0]:.4f} ({kd['bound'][1]}); "
+          f"host µs per window_qkv_attention call (enqueue, 200 calls): {host_us(b5):.1f}")
+    # the projection kernel alone beside one torch.matmul of the same bf16
+    # product: a yardstick the port never calls (B5's library_ms stays None:
+    # no one PyTorch call computes the whole op)
+    x2 = x.reshape(nw * n, c)
+    gemm_ms = [time_ms(lambda: attention.win_qkv_proj(x2, args[1], b_lin), 10) for _ in range(2)]
+    mm_ms = [time_ms(lambda: torch.matmul(x2, args[1]), 10) for _ in range(2)]
+    print(f"  B5 projection ({nw * n} × {c})·({c} × {3 * c}) + bias: kernel_ms "
+          + " / ".join(f"{t:.4f} ({b5_proj / t / 1e9:.1f} TFLOP/s)" for t in gemm_ms)
+          + "; torch.matmul (cuBLAS, no bias) "
+          + " / ".join(f"{t:.4f} ({b5_proj / t / 1e9:.1f} TFLOP/s)" for t in mm_ms)
+          + f"; kernel / matmul {gemm_ms[0] / mm_ms[0]:.3f}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            b5()
+        torch.cuda.synchronize()
+    rows = [(re.search(r"\w+(<[^>]*>)?(?=\()", e.key), e.self_device_time_total)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    print("  B5 device ms per call by kernel (torch.profiler, 10 calls): " + ", ".join(
+        f"{m.group(0) if m else '?'}: {us / 10 / 1e3:.4f}" for m, us in sorted(rows, key=lambda r: -r[1])))
+    del x, x2, w_lin, b_lin, rh, rw, args, b5, prof, rows
 
     # ---- B6 direct-bias flash attention at SAM-H's global blocks (64×64 grid)
     side = TILE // 16

@@ -78,22 +78,62 @@ def _windows(g, cuda, b, side_grid, window, c):
     return x.reshape(b * n * n, window * window, c).to(torch.bfloat16).contiguous()
 
 
-@pytest.mark.parametrize("c,heads,window,bias", [(1280, 16, 14, True), (768, 12, 16, True),
-                                                 (1280, 16, 14, False)])
-def test_window_qkv_kernel_matches_plain(cuda, c, heads, window, bias):
-    g = torch.Generator(device=cuda).manual_seed(c + window)
+def _bf16_close(got, want, max_rel=4e-3, l2=3e-3):
+    """bf16 results against an fp32 reference: one rounding (≤ 2⁻⁹ of each
+    value) and the sums' order."""
+    errs = attention.attn_errors(got, want)
+    assert errs["max"] <= max_rel and errs["l2"] <= l2, errs
+
+
+# SAM-H (C 1280, 16 × 80), SAM-B (768, 12 × 64) and SAM-L (1024, 16 × 64);
+# side 14 (two 128-key tiles, the second ragged) and 16 (N = 256, exactly
+# two); 9 windows of a 31² grid with zero-padded edge windows, or the 224×256
+# tile's 2 (NW·N = 392, not a multiple of the projection's 128-row tile); and
+# no qkv bias.
+@pytest.mark.parametrize("c,heads,window,bias,batch,side_grid", [
+    (1280, 16, 14, True, 1, 31), (768, 12, 16, True, 1, 35), (1280, 16, 14, False, 1, 31),
+    (1024, 16, 14, True, 1, 31), (768, 12, 14, True, 1, 31), (1280, 16, 16, True, 1, 35),
+    (1280, 16, 14, True, 2, 14),
+])
+def test_window_qkv_kernel_matches_plain(cuda, c, heads, window, bias, batch, side_grid):
+    g = torch.Generator(device=cuda).manual_seed(c + window + batch)
     hd = c // heads
-    x = _windows(g, cuda, 1, 2 * window + 3, window, c)
+    x = _windows(g, cuda, batch, side_grid, window, c)
     w = _bf16(g, (c, 3 * c), cuda, c**-0.5)
     b = _bf16(g, (3 * c,), cuda, 0.1) if bias else None
     rh, rw = (_bf16(g, (window, window, hd), cuda, 0.1) for _ in range(2))
-    before = _build.LAUNCHES["window_qkv_attention"]
+    before = dict(_build.LAUNCHES)
     o = attention.window_qkv_attention(x, w, b, rh, rw, heads)
     ref = attention.window_qkv_attention_plain(x, w, b, rh, rw, heads)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["window_qkv_attention"] == before + 1
+    assert _build.LAUNCHES["window_qkv_attention"] == before["window_qkv_attention"] + 1
+    assert _build.LAUNCHES["flash_attention_relpos"] == before["flash_attention_relpos"]
     errs = attention.attn_errors(o, ref)
     assert attention.within(errs, attention.WIN_QKV_BOUNDS), errs
+
+    # the three kernels' own results: the same o again, the bf16 qkv and the
+    # base-2 bias terms against their plain twins on the kernels' inputs
+    o2, qkv, bh, bw = attention._window_qkv_attention_launch(x, w, b, rh, rw, heads)
+    assert torch.equal(o, o2)
+    nw, n = x.shape[:2]
+    _bf16_close(qkv, attention.win_qkv_proj_plain(x.reshape(nw * n, c).float(), w, b))
+    q = qkv.reshape(nw, n, 3, heads, hd)[:, :, 0]
+    want = attention.win_qkv_terms_plain(q.float(), rh, rw)
+    for got, ref_t in zip((bh, bw), want):
+        _bf16_close(got[..., :window].float() / 1.4426950408889634, ref_t)
+        assert not got[..., window:].any()
+
+
+@pytest.mark.parametrize("m,c,bias", [(392, 1280, True), (1000, 768, True), (39200, 1280, False)])
+def test_window_qkv_projection_matches_plain(cuda, m, c, bias):
+    """B5's projection kernel alone: rows past the last 128-row tile, SAM-B's
+    and SAM-H's widths, SAM-H's 200 windows, no bias."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = _bf16(g, (m, c), cuda)
+    w = _bf16(g, (c, 3 * c), cuda, c**-0.5)
+    b = _bf16(g, (3 * c,), cuda, 0.1) if bias else None
+    got = attention.win_qkv_proj(x, w, b)
+    _bf16_close(got, attention.win_qkv_proj_plain(x.float(), w, b))
 
 
 @pytest.mark.parametrize("grid_hw,heads,d", [((32, 32), 2, 80), ((64, 64), 2, 64), ((16, 32), 3, 80),

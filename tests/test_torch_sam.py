@@ -1,9 +1,10 @@
 """Port's SAM encoder slice against the JAX package on the same inputs: the
-plain versions of the SAM attention kernels (B5 fused window qkv attention,
-B6 direct-bias flash attention, B7 whole-window attention) against the Pallas
-kernels in interpret mode, the tiny CellViT-SAM on each kernel's route, the
-weight bridge and checkpoint loading, and the bounds that hold the CUDA
-kernels to their plain versions against planted faults.
+plain versions of the SAM attention kernels (B5 window qkv attention, also as
+the plain twins of its three kernels, B6 direct-bias flash attention, B7
+whole-window attention) against the Pallas kernels in interpret mode, the
+tiny CellViT-SAM on each kernel's route, the weight bridge and checkpoint
+loading, and the bounds that hold the CUDA kernels to their plain versions
+against planted faults.
 
 Tolerances: the plain kernels within 3e-5 in fp32; the models within 2e-4
 (docs/PARITY.md)."""
@@ -56,15 +57,20 @@ def _t(a):
 # ------------------------------------------------ plain kernels vs Pallas
 
 
-@pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("c,nh,side", [(128, 4, 14), (160, 2, 14), (64, 2, 4)])
-def test_window_qkv_plain_matches_pallas(rng, c, nh, side, with_bias):
+def _win_qkv_inputs(rng, c, nh, side, with_bias, nw=5):
     n, hd = side * side, c // nh
-    x = (rng.standard_normal((5, n, c)) * 0.4).astype(np.float32)
+    x = (rng.standard_normal((nw, n, c)) * 0.4).astype(np.float32)
     x[-1, n // 2:] = 0.0  # the zero-padded tokens of an edge window
     w = (rng.standard_normal((c, 3 * c)) * c**-0.5).astype(np.float32)
     b = (rng.standard_normal(3 * c) * 0.1).astype(np.float32) if with_bias else None
     rh, rw = ((rng.standard_normal((side, side, hd)) * 0.2).astype(np.float32) for _ in range(2))
+    return x, w, b, rh, rw
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("c,nh,side", [(128, 4, 14), (160, 2, 14), (64, 2, 4)])
+def test_window_qkv_plain_matches_pallas(rng, c, nh, side, with_bias):
+    x, w, b, rh, rw = _win_qkv_inputs(rng, c, nh, side, with_bias)
     jb = None if b is None else jnp.asarray(b)
     want = jax_attention.window_qkv_attention(jnp.asarray(x), jnp.asarray(w), jb, jnp.asarray(rh),
                                               jnp.asarray(rw), nh, interpret=True)
@@ -74,6 +80,45 @@ def test_window_qkv_plain_matches_pallas(rng, c, nh, side, with_bias):
                                          _t(rw), nh)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=3e-5)
+
+
+def _win_qkv_twins(x, w, b, rh, rw, nh):
+    """B5 as the plain twins of its three kernels: the projection, the bias
+    terms, then the rel-pos attention on q, k and v read from the qkv rows."""
+    nw, n, c = x.shape
+    qkv = attention.win_qkv_proj_plain(x.reshape(nw * n, c), w, b).reshape(nw, n, 3, nh, c // nh)
+    q, k, v = qkv.unbind(2)
+    bh, bw = attention.win_qkv_terms_plain(q, rh, rw)
+    return attention.relpos_attention_plain(q, k, v, bh, bw).reshape(nw, n, c)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("c,nh,side", [(128, 4, 14), (160, 2, 16)])
+def test_window_qkv_twins_compose_to_the_plain_op(rng, c, nh, side, with_bias):
+    """In fp32 the three twins compose to `window_qkv_attention_plain`: the
+    same products summed in other orders, within 2e-5 at |o| ≤ 2."""
+    x, w, b, rh, rw = (None if a is None else _t(a) for a in _win_qkv_inputs(rng, c, nh, side, with_bias))
+    got = _win_qkv_twins(x, w, b, rh, rw, nh)
+    want = attention.window_qkv_attention_plain(x, w, b, rh, rw, nh)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_window_qkv_twins_in_bf16_match_pallas(rng, with_bias):
+    """On bf16 inputs the twins round qkv and Bh/Bw to bf16, as the kernels
+    do; the Pallas kernel (interpret mode) rounds its own way (k and v, q·scale
+    and the bias terms, the softmax's exponent argument). The two agree within
+    `WIN_QKV_BOUNDS`, relative to the fp32 oracle's |o|."""
+    x, w, b, rh, rw = _win_qkv_inputs(rng, 320, 4, 14, with_bias)
+    bf = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)
+    want = jax_attention._win_qkv_fwd_only(bf(x), bf(w), bf(b), bf(rh), bf(rw), 4, None, True)
+    tb = lambda a: None if a is None else _t(a).to(torch.bfloat16)
+    got = _win_qkv_twins(tb(x), tb(w), tb(b), tb(rh), tb(rw), 4)
+    oracle = attention.window_qkv_attention_plain(
+        *(None if a is None else _t(a) for a in (x, w, b, rh, rw)), 4)
+    errs = attention.attn_errors(got.float() - _t(np.asarray(want, np.float32)) + oracle, oracle)
+    assert attention.within(errs, attention.WIN_QKV_BOUNDS), errs
 
 
 @pytest.mark.parametrize("gh,gw,bq", [(32, 32, 128), (16, 32, 64)])
@@ -293,23 +338,60 @@ def _softmax_bf16_p(logits, v, valid=None):
     return (_bf(p) @ v) / p.sum(-1, keepdim=True)
 
 
-def _emulated_win_qkv(x, w, b, rh, rw, nh, fault):
-    """B5's arithmetic on the CPU: q, k, v rounded to bf16 after the fp32
-    projection, Bh/Bw from the rounded unscaled q, p and o rounded."""
+def _emulated_win_qkv_sm90(x, w, b, rh, rw, nh, fault, tile=128):
+    """B5's arithmetic as its three Hopper kernels play it. The projection:
+    fp32 products plus the fp32 bias, rounded once to bf16 into (NW·N, 3C)
+    rows read back as q, k and v by strides. The bias terms: Bh and Bw from
+    the bf16 unscaled q, fp32 products times log2(e), rounded to bf16. The
+    attention: q rescaled to bf16(q·scale·log2 e); per 128-key tile S = q·kᵀ
+    plus [Bh | Bw] times the one-hot of each key's grid row and column (keys
+    past N: zero k, v and one-hot, then masked); a running max and sum in
+    base 2, p rounded to bf16 before P·V, o rounded at the end. The faults:
+    the epilogue's head offset one head off, k and v swapped in the strided
+    views, the ragged tile's keys past N left unmasked, Bh's grid row taken
+    per 8-key group (wrong where the side does not divide the group's
+    keys), the bias from the scaled q, and the zero-padded window tokens
+    masked as keys."""
     nw, n, c = x.shape
     hd, side = c // nh, rh.shape[0]
-    qkv = x.float() @ w.float() + b.float()
-    q, k, v = (_bf(t).transpose(1, 2) for t in qkv.reshape(nw, n, 3, nh, hd).unbind(2))
-    qb = q * hd**-0.5 if fault == "bias_from_scaled_q" else q
+    log2e = 1.4426950408889634
+    qkv = _bf(x.float() @ w.float() + b.float()).reshape(nw, n, 3, nh, hd)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (NW, H, N, D)
+    if fault == "k_v_swapped":
+        k, v = v, k
+    qb = _bf(q * hd**-0.5) if fault == "bias_from_scaled_q" else q
     t = torch.arange(n)
-    bh = torch.einsum("whtd,trd->whtr", qb, rh.float()[t // side])
-    bw = torch.einsum("whtd,tcd->whtc", qb, rw.float()[t % side])
-    logits = q @ k.transpose(-1, -2) * hd**-0.5 + bh[..., t // side] + bw[..., t % side]
-    valid = None
-    if fault == "masked_padding":
-        valid = (x.abs().sum(-1) > 0)[:, None, None, :]
-    o = _softmax_bf16_p(logits, v, valid)
-    return _bf(o).transpose(1, 2).reshape(nw, n, c)
+    bh = _bf(torch.einsum("whtd,trd->whtr", qb, rh.float()[t // side]) * log2e)
+    bw = _bf(torch.einsum("whtd,tcd->whtc", qb, rw.float()[t % side]) * log2e)
+    qs = _bf(q * (hd**-0.5 * log2e))
+    n_kt = -(-n // tile)
+    kp, vp = (torch.nn.functional.pad(a, (0, 0, 0, n_kt * tile - n)) for a in (k, v))
+    pad_key = (x.abs().sum(-1) == 0)[:, None, None, :]  # (NW, 1, 1, N)
+    m = torch.full((nw, nh, n, 1), -np.inf)
+    l, acc = torch.zeros((nw, nh, n, 1)), torch.zeros((nw, nh, n, hd))
+    for k0 in range(0, n_kt * tile, tile):
+        key = k0 + torch.arange(tile)
+        valid = key < n
+        row = key // side
+        if fault == "bh_row_per_8_keys":
+            row = (k0 + 8 * (torch.arange(tile) // 8)) // side
+        row, col = row.clamp(max=side - 1), (key % side)
+        bias = (bh[..., row] + bw[..., col]) * valid  # the one-hot rows past N are zero
+        s = qs @ kp[..., k0:k0 + tile, :].transpose(-1, -2) + bias
+        if fault != "ragged_unmasked":
+            s = s.masked_fill(~valid, -np.inf)
+        if fault == "masked_padding":
+            s = s.masked_fill(torch.nn.functional.pad(pad_key, (0, n_kt * tile - n))[..., k0:k0 + tile],
+                              -np.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _bf(p) @ vp[..., k0:k0 + tile, :]
+        m = m_new
+    o = _bf(acc / l)
+    if fault == "head_offset_one_head":
+        o = o.roll(1, dims=1)
+    return o.transpose(1, 2).reshape(nw, n, c)
 
 
 def _emulated_relpos(q, k, v, bh, bw, fault):
@@ -391,7 +473,9 @@ def _sam_inputs(seed, side_grid=20, window=14, c=320, nh=4):
 
 @pytest.mark.parametrize("kernel,fault", [
     ("window_qkv", "none"), ("window_qkv", "bias_from_scaled_q"),
-    ("window_qkv", "masked_padding"),
+    ("window_qkv", "masked_padding"), ("window_qkv", "head_offset_one_head"),
+    ("window_qkv", "k_v_swapped"), ("window_qkv", "ragged_unmasked"),
+    ("window_qkv", "bh_row_per_8_keys"),
     ("relpos", "none"), ("relpos", "swapped_bh_bw"), ("relpos", "index_off_by_one"),
     ("relpos_tiled", "none"), ("relpos_tiled", "bw_register_one_thread_off"),
     ("relpos_tiled", "bh_row_one_tile_ahead"),
@@ -403,7 +487,7 @@ def test_sam_bounds_separate_rounding_from_kernel_faults(kernel, fault):
     each planted fault does not."""
     if kernel == "window_qkv":
         args = _sam_inputs(0)
-        got = _emulated_win_qkv(*args, fault)
+        got = _emulated_win_qkv_sm90(*args, fault)
         ref = attention.window_qkv_attention_plain(*(a.float() if torch.is_tensor(a) else a
                                                      for a in args))
         bounds = attention.WIN_QKV_BOUNDS
@@ -433,6 +517,7 @@ def test_cpu_tensors_take_the_plain_versions():
     before = dict(_build.LAUNCHES)
     x, w, b, rh, rw, nh = _sam_inputs(3)
     attention.window_qkv_attention(x.float(), w.float(), b.float(), rh.float(), rw.float(), nh)
+    attention.win_qkv_proj(x[0], w, b)
     q = torch.randn((1, 1024, 2, 64))
     r = torch.randn((32, 32, 64)) * 0.1
     attention.flash_attention_relpos(q, q, q, r, r, (32, 32))
