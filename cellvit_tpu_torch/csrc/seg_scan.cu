@@ -1,40 +1,32 @@
-// Segmented directional scans: connected-component root labels, label
-// compaction by min-propagation, and border flood (hole filling).
+// Segmented directional OR-scans: border flood (hole filling).
 //
 // Replaces (cellvit_tpu/ops/cc_pallas.py):
-//   `_cc_kernel` :75      (pallas_call :101, `connected_components_pallas`)
-//   `_propmin_kernel` :118 (pallas_call :148, `propagate_min_pallas`)
 //   `_flood_kernel` :225   (pallas_call :250, `flood_pallas`)
 //
-// Each Pallas kernel runs `n_outer` passes; a pass scans along axis 0
+// The Pallas kernel runs `n_outer` passes; a pass scans along axis 0
 // forward, axis 0 reverse, axis 1 forward, axis 1 reverse, re-masking after
-// each. One doubling pass of `_segmin_direction` / `_segor_direction` is an
-// exact inclusive segmented prefix-min (prefix-OR) along the direction, in
-// which barrier pixels (background, or closed pixels for the flood) reset
-// the running value and keep the identity (INT_MAX, or 0). Any exact
+// each. One doubling pass of `_segor_direction` is an exact inclusive
+// segmented prefix-OR along the direction, in which barrier pixels (closed
+// pixels) reset the running value and keep the identity 0. Any exact
 // segmented scan therefore gives bit-identical results; here each line is
 // scanned by a block in shared memory (chunked per thread, carries combined
 // across threads), and the pass order and `n_outer` are kept exactly.
+// (B2 and B4, the min-scans, are `seg_min.cu`.)
 //
-// Bound on the H100 at (8, 1024, 1024): one read of the inputs and one write
-// of the int32 output — CC 8 MB + 32 MB (≈12 µs), propagate-min 40 MB + 32 MB
-// (≈21 µs), flood 16 MB + 32 MB (≈14 µs) at 3.35 TB/s; bound by bytes. This
-// design streams the int32 state and the int8 mask through device memory
-// twice per pass (one column launch for both axis-0 directions, one row
-// launch for both axis-1 directions): ≈6 × 72 MB ≈ 0.13 ms per 3-pass call.
-// Keeping a whole image resident (the Pallas design) does not fit one block's
-// 227 KB of shared memory at 1024²; fusing passes across blocks is later work.
+// Bound on the H100 at (8, 1024, 1024): one read of the two int8 inputs and
+// one write of the int32 output, 16 MB + 32 MB (≈14 µs at 3.35 TB/s); bound
+// by bytes. This design streams the int32 state and the int8 mask through
+// device memory twice per pass (one column launch for both axis-0
+// directions, one row launch for both axis-1 directions): ≈4 × 72 MB ≈ 0.09
+// ms per 2-pass call. Keeping a whole image resident (the Pallas design) does
+// not fit one block's 227 KB of shared memory at 1024²; fusing passes across
+// blocks is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <limits.h>
 
 namespace {
 
-struct MinOp {
-  static __device__ __forceinline__ int32_t ident() { return INT_MAX; }
-  static __device__ __forceinline__ int32_t op(int32_t a, int32_t b) { return a < b ? a : b; }
-};
 struct OrOp {
   static __device__ __forceinline__ int32_t ident() { return 0; }
   static __device__ __forceinline__ int32_t op(int32_t a, int32_t b) { return a | b; }
@@ -148,24 +140,6 @@ row_scan_kernel(int32_t* __restrict__ v, const int8_t* __restrict__ fg, int W) {
   for (int i = tid; i < W; i += ROW_THREADS) v[base + i] = sf[i] ? sv[i] : Op::ident();
 }
 
-__global__ void init_index_kernel(const int8_t* __restrict__ fg, int32_t* __restrict__ lab,
-                                  long long total, int HW) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < total) lab[i] = fg[i] ? (int32_t)(i % HW) : INT_MAX;
-}
-
-__global__ void finalize_labels_kernel(const int8_t* __restrict__ fg, int32_t* __restrict__ lab,
-                                       long long total) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < total) lab[i] = fg[i] ? lab[i] + 1 : 0;
-}
-
-__global__ void init_seed_kernel(const int32_t* __restrict__ seed, const int8_t* __restrict__ fg,
-                                 int32_t* __restrict__ out, long long total) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i < total) out[i] = fg[i] ? seed[i] : INT_MAX;
-}
-
 __global__ void init_flood_kernel(const int8_t* __restrict__ seed, const int8_t* __restrict__ open,
                                   int32_t* __restrict__ out, long long total) {
   long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -200,32 +174,6 @@ cudaError_t run_passes(int32_t* v, const int8_t* fg, int B, int H, int W, int n_
 inline unsigned blocks_for(long long total) { return (unsigned)((total + 255) / 256); }
 
 }  // namespace
-
-// (B, H, W) int8 mask → (B, H, W) int32 root labels (component-min linear
-// index + 1, background 0).
-extern "C" int cc_labels(const void* fg, void* lab, int B, int H, int W, int n_outer,
-                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  long long total = (long long)B * H * W;
-  init_index_kernel<<<blocks_for(total), 256, 0, s>>>((const int8_t*)fg, (int32_t*)lab, total, H * W);
-  cudaError_t e = run_passes<MinOp>((int32_t*)lab, (const int8_t*)fg, B, H, W, n_outer, s);
-  if (e != cudaSuccess) return (int)e;
-  finalize_labels_kernel<<<blocks_for(total), 256, 0, s>>>((const int8_t*)fg, (int32_t*)lab, total);
-  return (int)cudaGetLastError();
-}
-
-// (B, H, W) int32 seeds + int8 mask → per-component min seed (INT_MAX on
-// background and where no finite seed reaches).
-extern "C" int propagate_min(const void* seed, const void* fg, void* out, int B, int H, int W,
-                             int n_outer, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  long long total = (long long)B * H * W;
-  init_seed_kernel<<<blocks_for(total), 256, 0, s>>>((const int32_t*)seed, (const int8_t*)fg,
-                                                     (int32_t*)out, total);
-  cudaError_t e = run_passes<MinOp>((int32_t*)out, (const int8_t*)fg, B, H, W, n_outer, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
 
 // (B, H, W) int8 seed + int8 open mask → int32 reachability (0/1) through
 // open pixels, 4-connected.

@@ -9,10 +9,15 @@ Each op runs `n_outer` passes of four directional segmented scans — axis 0
 forward, axis 0 reverse, axis 1 forward, axis 1 reverse, each followed by a
 re-mask — exactly the Pallas kernels' schedule, so on shapes that need more
 turns than `n_outer` the result equals the Pallas kernel's, not a converged
-labeler's. On a CUDA tensor the kernels of `csrc/seg_scan.cu` run; on a CPU
-tensor the plain versions below, which scan by the same doubling steps as
-the Pallas kernels (`_segmin_direction`, `_segor_direction`). Every exact
-segmented scan gives the same bits, so the two agree exactly.
+labeler's. On a CPU tensor the plain versions below run, which scan by the
+same doubling steps as the Pallas kernels (`_segmin_direction`,
+`_segor_direction`). On a CUDA tensor the flood runs the scan kernels of
+`csrc/seg_scan.cu`; connected components and min-propagation run
+`csrc/seg_min.cu`, one launch a call with each image's state resident in
+shared memory, which applies a pass as two run-min broadcasts (columns, then
+rows): a forward min-scan, the re-mask and a reverse min-scan give each open
+pixel the minimum of its whole run. Every exact schedule gives the same
+bits, so kernels and plain versions agree exactly.
 """
 
 from __future__ import annotations
@@ -24,9 +29,15 @@ import torch
 from cellvit_tpu_torch import _build
 
 INT_MAX = torch.iinfo(torch.int32).max
-# the axis-0 kernel holds a 32-column strip of the whole image height
+# the flood's axis-0 kernel holds a 32-column strip of the whole image height
 # (5 bytes a pixel) in one block's 227 KB of shared memory
 MAX_HEIGHT = 1400
+#: `csrc/seg_min.cu` (B2, B4) keeps a 128 × 256 tile in each block and folds
+#: runs across at most 12 tiles down a column and 8 along a row
+RESIDENT_TILE = (128, 256)
+RESIDENT_MAX_HW = (12 * 128, 8 * 256)
+#: its barrier words, two per group of one image's tiles (512 groups)
+_SYNC_WORDS = 2 * 512
 
 Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -94,12 +105,31 @@ def flood_plain(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> to
 # ----------------------------------------------------------- kernel wrappers
 
 
-def _check_mask(name: str, t: torch.Tensor) -> torch.Tensor:
+def _check_mask(name: str, t: torch.Tensor, max_hw=(MAX_HEIGHT, None)) -> torch.Tensor:
     if t.dim() != 3:
         raise ValueError(f"{name} must be (B, H, W); got {tuple(t.shape)}")
-    if t.shape[1] > MAX_HEIGHT:
-        raise ValueError(f"{name}: height {t.shape[1]} exceeds the kernel's {MAX_HEIGHT}")
+    for size, limit, what in zip(t.shape[1:], max_hw, ("height", "width")):
+        if limit is not None and size > limit:
+            raise ValueError(f"{name}: {what} {size} exceeds the kernel's {limit}")
     return t.to(torch.bool).contiguous()
+
+
+_sync: dict = {}
+
+
+def _resident_scratch(fg: torch.Tensor):
+    """`csrc/seg_min.cu`'s workspace (per image, one int4 summary per line
+    and tile, both axes; uninitialised) and its barrier words, which each
+    call leaves at 0: one zeroed buffer per device and stream, made at first
+    use. Returns (workspace, sync words, stream)."""
+    b, h, w = fg.shape
+    ty, tx = -(-h // RESIDENT_TILE[0]), -(-w // RESIDENT_TILE[1])
+    ws = torch.empty(b * (w * ty + h * tx) * 4, dtype=torch.int32, device=fg.device)
+    stream = _build.stream_of(fg)
+    sync = _sync.get((fg.device, stream))
+    if sync is None:
+        sync = _sync[(fg.device, stream)] = torch.zeros(_SYNC_WORDS, dtype=torch.int32, device=fg.device)
+    return ws, sync, stream
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -112,13 +142,14 @@ def connected_components_cuda(fg: torch.Tensor, n_outer: int = 3) -> torch.Tenso
     """Root labels by `n_outer` scan passes (kernel B2 on CUDA)."""
     if _device_kind(fg) == "cpu":
         return connected_components_plain(fg, n_outer)
-    fg = _check_mask("fg", fg)
+    fg = _check_mask("fg", fg, RESIDENT_MAX_HW)
     b, h, w = fg.shape
     lab = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
-    fn = _build.bind("seg_scan.cu", "cc_labels", "ppiiii")
+    ws, sync, stream = _resident_scratch(fg)
+    fn = _build.bind("seg_min.cu", "cc_labels", "ppppiiii")
     _build.LAUNCHES["connected_components"] += 1
-    _build.check(fn(fg.data_ptr(), lab.data_ptr(), b, h, w, n_outer, _build.stream_of(fg)),
-                 "cc_labels")
+    _build.check(fn(fg.data_ptr(), lab.data_ptr(), sync.data_ptr(), ws.data_ptr(), b, h, w, n_outer,
+                    stream), "cc_labels")
     return lab
 
 
@@ -126,17 +157,18 @@ def propagate_min_cuda(seed: torch.Tensor, fg: torch.Tensor, n_outer: int = 3) -
     """Per-component min of `seed` by `n_outer` scan passes (kernel B4 on CUDA)."""
     if _device_kind(seed) == "cpu":
         return propagate_min_plain(seed, fg, n_outer)
-    fg = _check_mask("fg", fg)
+    fg = _check_mask("fg", fg, RESIDENT_MAX_HW)
     seed = seed.to(torch.int32).contiguous()
     if seed.shape != fg.shape:
         raise ValueError(f"seed {tuple(seed.shape)} and fg {tuple(fg.shape)} differ")
     b, h, w = fg.shape
     out = torch.empty((b, h, w), dtype=torch.int32, device=fg.device)
-    fn = _build.bind("seg_scan.cu", "propagate_min", "pppiiii")
+    ws, sync, stream = _resident_scratch(fg)
+    fn = _build.bind("seg_min.cu", "propagate_min", "pppppiiii")
     _build.LAUNCHES["propagate_min"] += 1
     _build.check(
-        fn(seed.data_ptr(), fg.data_ptr(), out.data_ptr(), b, h, w, n_outer,
-           _build.stream_of(fg)),
+        fn(seed.data_ptr(), fg.data_ptr(), out.data_ptr(), sync.data_ptr(), ws.data_ptr(), b, h, w,
+           n_outer, stream),
         "propagate_min",
     )
     return out
@@ -163,11 +195,17 @@ def flood_cuda(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> tor
 
 
 def root_rank_seed(lab: torch.Tensor) -> torch.Tensor:
-    """Each root pixel's 1-based rank in raster order of roots (a cumsum),
-    INT_MAX elsewhere: the seed that `compact_root_labels_cuda` propagates."""
+    """Each root pixel's 1-based rank in raster order of its image's roots,
+    INT_MAX elsewhere: the seed that `compact_root_labels_cuda` propagates.
+    One cumsum over the whole batch, less the roots of the images before:
+    on CUDA, PyTorch scans a (B, H·W) tensor along its rows with a per-row
+    kernel, many times slower at 1024² than its device-wide scan of the flat
+    batch."""
     b, h, w = lab.shape
     is_root = (lab > 0) & (lab - 1 == raster_ids(h, w, lab.device))
-    rank = torch.cumsum(is_root.reshape(b, h * w), dim=1, dtype=torch.int32).reshape(b, h, w)
+    cum = torch.cumsum(is_root.reshape(-1), 0).reshape(b, h * w)
+    before = torch.cat([cum.new_zeros(1), cum[:-1, -1]])
+    rank = (cum - before[:, None]).to(torch.int32).reshape(b, h, w)
     return torch.where(is_root, rank, INT_MAX)
 
 

@@ -8,18 +8,23 @@
    shapes its path gives it: flash attention (8, 4097, 6, 64) bf16 within a
    bf16 output bound; the segmented-scan kernels on (8, 1024, 1024) blob
    masks with an L/U shape and a spiral that 3 passes do not converge,
-   exactly; SAM-H's window qkv attention (B5) on 200 windows of 196 tokens
-   (C = 1280), and on SAM-B's and SAM-L's widths (head dim 64), its
-   direct-bias flash attention on (8, 4096, 16, 80) and its whole-window
-   attention on a 14×16 grid, each within its bf16 bound. B5's phase also
-   times its projection kernel beside `torch.matmul` of the same product
-   and its three kernels by `torch.profiler`.
+   exactly, and connected components (B2) and min-propagation (B4), one
+   resident-tile launch a call, also on a 9-image batch (more than one wave
+   of images) whose last image is all open, with their times in two runs,
+   host µs and device kernels per call (`torch.profiler`), and B4's whole
+   op `compact_root_labels_cuda`; SAM-H's window qkv attention (B5) on 200
+   windows of 196 tokens (C = 1280), and on SAM-B's and SAM-L's widths
+   (head dim 64), its direct-bias flash attention on (8, 4096, 16, 80) and
+   its whole-window attention on a 14×16 grid, each within its bf16 bound.
+   B5's phase also times its projection kernel beside `torch.matmul` of the
+   same product and its three kernels by `torch.profiler`.
    Each phase times the kernel, the plain version and, where one exists, one
    PyTorch library call of the same function, beside the least time the card
    could take (for the attention kernels also their exponentials over the
    SFUs' rate at the card's maximum SM clock). B1, B5 and B6, on wgmma and
    TMA, also print their TFLOP/s and host µs per call, and the build prints
-   the ptxas spill bytes of every instantiation of theirs and of B8.
+   the ptxas spill bytes of every instantiation of theirs, of B8 and of
+   B2/B4's kernel.
 4. Drives the main paths through `CellSegmentationInference` on batches of
    8 × 1024² synthetic blob tiles, bf16, one warm-up batch and timed
    batches each: a full-width CellViT-256, then a full-width CellViT-SAM-H
@@ -166,6 +171,31 @@ def host_us(fn, calls: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
+
+
+def device_kernels(fn, calls: int = 10) -> str:
+    """The device kernels of `calls` calls of `fn` after a warm-up, counted
+    by `torch.profiler`, as "n calls: {kernel: launches}"."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)
+            counts[m.group(0) if m else e.key] = e.count
+    return f"{calls} calls: {counts}"
+
+
+def scan_times(name: str, kd: dict, fn) -> None:
+    """Print a scan kernel's time in two runs beside its bound, its host µs
+    per call and the device kernels its calls run."""
+    print(f"  {name}: kernel_ms {kd['ms']:.4f} / {time_ms(fn):.4f}, bound_ms {kd['bound'][0]:.4f} "
+          f"({kd['bound'][1]}); host µs per call (enqueue, 200 calls) {host_us(fn):.1f}; "
+          f"device kernels over {device_kernels(fn)}")
 
 
 def attention_times(name: str, kd: dict, flops: float, ex2: float) -> None:
@@ -854,7 +884,8 @@ def main() -> int:
                         ("relpos_attn.cu", "<KB, KS, DV, BK, bias, warpgroups, turns>"),
                         ("flash_attn_bwd.cu", "<KB, DV>"),
                         ("win_qkv_attn.cu", "flash <KB, KS, DV, BK, bias (-1: EXPAND), warpgroups, "
-                                            "turns>; terms <D>")):
+                                            "turns>; terms <D>"),
+                        ("seg_min.cu", "<seed>")):
         if src in report:
             spills = ptxas_spills(report[src][1])
             print(f"  {src} spill bytes (stores, loads) per instantiation {params}: "
@@ -892,7 +923,9 @@ def main() -> int:
           f"{host_us(lambda: attention.flash_attention(q, k, v)):.1f}")
     del qkv, q, k, v, o, po, lse, plse, qt, kt, vt
 
-    # ---- B2-B4 segmented scans on blob masks + U shape + spiral
+    # ---- B2-B4 segmented scans on blob masks + U shape + spiral; B2 and B4
+    # (one resident-tile launch a call) also on a 9-image batch, more than one
+    # wave of images, whose last image is all open: one run across every tile
     imgs, masks = blob_tiles(BATCH, TILE, 0)
     fg = torch.from_numpy(scan_masks(masks)).to(dev)
     n_px = fg.numel()
@@ -903,13 +936,25 @@ def main() -> int:
     print(f"B2 connected components: {n_diff} px differ (exact required); "
           f"spiral split into {spiral_ids} labels after 3 passes (converged: 1)")
     require(n_diff == 0 and spiral_ids > 1, "connected-components kernel disagrees")
+    fg9 = torch.cat([fg, torch.ones_like(fg[:1])])
+    lab9 = cc_cuda.connected_components_cuda(fg9, 3)
+    n_diff9 = int((lab9 != cc_cuda.connected_components_plain(fg9, 3)).sum())
+    rank9 = cc_cuda.root_rank_seed(lab9)
+    pm9 = cc_cuda.propagate_min_cuda(rank9, lab9 > 0, 3)
+    n_diff9_pm = int((pm9 != cc_cuda.propagate_min_plain(rank9, lab9 > 0, 3)).sum())
+    print(f"B2 / B4 on {tuple(fg9.shape)}, image 8 all open: {n_diff9} / {n_diff9_pm} px differ "
+          f"(exact required); image 8 labels {torch.unique(lab9[8]).tolist()} (one run: [1])")
+    require(n_diff9 == 0 and n_diff9_pm == 0 and bool((lab9[8] == 1).all()),
+            "the resident-tile kernel disagrees on the 9-image batch")
+    del fg9, lab9, rank9, pm9
     kernels["connected_components"] = dict(
-        route="cuda", source="cellvit_tpu_torch/csrc/seg_scan.cu",
+        route="cuda", source="cellvit_tpu_torch/csrc/seg_min.cu",
         replaces="cellvit_tpu/ops/cc_pallas.py:75", max_abs_err=float(n_diff),
         ms=time_ms(lambda: cc_cuda.connected_components_cuda(fg, 3)),
         plain_ms=time_ms(lambda: cc_cuda.connected_components_plain(fg, 3), 3),
         library_ms=None, bound=bound_ms(n_px * 1 + n_px * 4),
     )
+    scan_times("B2", kernels["connected_components"], lambda: cc_cuda.connected_components_cuda(fg, 3))
 
     seed = cc_cuda.border_seed(fg)
     open_ = ~fg
@@ -932,12 +977,16 @@ def main() -> int:
     print(f"B4 propagate-min: {n_diff} px differ (exact required)")
     require(n_diff == 0, "propagate-min kernel disagrees")
     kernels["propagate_min"] = dict(
-        route="cuda", source="cellvit_tpu_torch/csrc/seg_scan.cu",
+        route="cuda", source="cellvit_tpu_torch/csrc/seg_min.cu",
         replaces="cellvit_tpu/ops/cc_pallas.py:118", max_abs_err=float(n_diff),
         ms=time_ms(lambda: cc_cuda.propagate_min_cuda(rank_seed, lab_fg, 3)),
         plain_ms=time_ms(lambda: cc_cuda.propagate_min_plain(rank_seed, lab_fg, 3), 3),
         library_ms=None, bound=bound_ms(n_px * 4 + n_px + n_px * 4),
     )
+    scan_times("B4", kernels["propagate_min"], lambda: cc_cuda.propagate_min_cuda(rank_seed, lab_fg, 3))
+    compact = lambda: cc_cuda.compact_root_labels_cuda(lab, 3)
+    print(f"  B4's op compact_root_labels_cuda (rank seed cumsum, B4, select): {time_ms(compact):.4f} / "
+          f"{time_ms(compact):.4f} ms; device kernels over {device_kernels(compact)}")
     del fg, lab, plab, seed, open_, reach, lab_fg, rank_seed, pm
 
     # ---- B5 window qkv attention at SAM-H's windowed blocks: 8 tiles' 64×64

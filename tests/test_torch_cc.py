@@ -1,6 +1,12 @@
 """Port's scan ops (plain versions on CPU) bit-exact against the Pallas
 kernels in interpret mode, and the port's converging CC / hole filling /
-morphology / size filter and cv2-parity filters against their JAX twins."""
+morphology / size filter and cv2-parity filters against their JAX twins.
+Also the arithmetic of the resident-tile kernel of connected components and
+min-propagation (`csrc/seg_min.cu`): a pass as two run-min broadcasts, and a
+step-by-step replay of its tiles, chunks and edge summaries, which must fail
+planted faults."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +26,7 @@ from cellvit_tpu_torch.ops import cc, cc_cuda, filters
 
 # one intra-op thread each: the suite runs as parallel pytest workers
 torch.set_num_threads(1)
+INT_MAX = cc_cuda.INT_MAX
 
 
 def _blobs(rng, b, h, w, n, rmin=2, rmax=7):
@@ -96,6 +103,194 @@ def test_propagate_min_and_compact_plain_bitexact(rng, n_outer):
                                            n_outer=n_outer, interpret=True))
     got = cc_cuda.propagate_min_cuda(torch.from_numpy(seed), torch.from_numpy(m), n_outer)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _run_broadcast(v, open_, dim, reduce, ident):
+    """Each open pixel ← the `reduce` of its run along `dim` (a maximal
+    stretch of open pixels), closed pixels ← `ident`: segment ids from a
+    cumsum of the closed pixels, one scatter-reduce."""
+    vt, ot = v.movedim(dim, -1), open_.movedim(dim, -1)
+    n = vt.shape[-1]
+    line = torch.arange(vt.numel() // n).reshape(vt.shape[:-1] + (1,)) * (n + 1)
+    key = (torch.cumsum(~ot, -1) + line).reshape(-1)
+    src = torch.where(ot, vt, ident).reshape(-1)
+    red = torch.full((int(key.max()) + 1,), ident, dtype=v.dtype)
+    red = red.scatter_reduce(0, key, src, reduce, include_self=True)
+    return torch.where(ot, red[key].reshape(vt.shape), ident).movedim(-1, dim)
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("op", ["min", "or"])
+def test_run_broadcast_equals_scan_pair(rng, op, dim):
+    """A forward segmented scan, the re-mask and a reverse one equal a run
+    broadcast bit for bit (min and OR are idempotent and associative): the
+    identity on which `seg_min.cu` applies a pass as two broadcasts. Any
+    int32 for min, INT_MAX and negatives included; the flood's 0/1 for OR."""
+    m = rng.random((3, 40, 56)) < 0.6
+    m[0, 5], m[0, :, 7] = True, True      # all-open lines along both axes
+    m[1, 9], m[1, :, 11] = False, False   # all-closed lines
+    m[2] = True
+    if op == "min":
+        v = rng.integers(-2**31, 2**31, m.shape, dtype=np.int64).astype(np.int32)
+        v[:, ::5] = cc_cuda.INT_MAX
+        fn, ident, reduce = torch.minimum, cc_cuda.INT_MAX, "amin"
+    else:
+        v = (rng.random(m.shape) < 0.1).astype(np.int32)
+        fn, ident, reduce = torch.bitwise_or, 0, "amax"
+    fg = torch.from_numpy(m)
+    v = torch.where(fg, torch.from_numpy(v), ident)
+    want = v
+    for reverse in (False, True):
+        want = torch.where(fg, cc_cuda.segmented_scan(want, ~fg, dim, reverse, fn, ident), ident)
+    got = _run_broadcast(v, fg, dim, reduce, ident)
+    assert torch.equal(got, want)
+
+
+def _fold(c, edge, full):
+    """The minimum leaving a span of a line at its far end: the one that
+    entered continues only through an all-open span."""
+    return np.minimum(np.where(full, c, INT_MAX), edge)
+
+
+def _emulated_phase(v, m, axis, tile_len, chunk, fault):
+    """One run-min broadcast along `axis` of padded (B, H, W) state `v` and
+    mask `m`, as `seg_min.cu` computes it: run minima within each chunk of
+    `chunk` pixels of a line (a forward and a reverse walk), each chunk's
+    first-run and last-run minima and all-open flag, their folds into the
+    tile's summary of the line, folds of the tiles' summaries along the line,
+    then the carries folded back into each chunk's first and last runs."""
+    if axis == 0:
+        v, m = v.transpose(0, 2, 1), m.transpose(0, 2, 1)
+    b, nl, n = v.shape
+    kt, nt = tile_len // chunk, n // tile_len
+    vc, mc = v.reshape(b, nl, n // chunk, chunk).copy(), m.reshape(b, nl, n // chunk, chunk)
+    for order in (range(chunk), range(chunk - 1, -1, -1)):
+        run = np.full(vc.shape[:-1], INT_MAX, vc.dtype)
+        for i in order:
+            run = np.where(mc[..., i], np.minimum(run, vc[..., i]), INT_MAX)
+            vc[..., i] = np.where(mc[..., i], run, vc[..., i]) if fault == "no_remask" else run
+    head, tail, full = (a.reshape(b, nl, nt, kt) for a in (vc[..., 0], vc[..., -1], mc.all(-1)))
+    t_head, t_tail = np.full((2, b, nl, nt), INT_MAX, vc.dtype)
+    for j in range(kt):
+        t_tail = _fold(t_tail, tail[..., j], full[..., j])
+        t_head = _fold(t_head, head[..., kt - 1 - j], full[..., kt - 1 - j])
+    t_full = full.all(-1)
+    cin, cout = np.full((2, b, nl, nt), INT_MAX, vc.dtype)
+    for p in range(1, nt):
+        q = nt - 1 - p
+        if fault == "one_neighbour":  # a run that spans a tile reaches the next one only
+            cin[..., p], cout[..., q] = t_tail[..., p - 1], t_head[..., q + 1]
+        else:
+            cin[..., p] = _fold(cin[..., p - 1], t_tail[..., p - 1], t_full[..., p - 1])
+            cout[..., q] = _fold(cout[..., q + 1], t_head[..., q + 1], t_full[..., q + 1])
+    cl, cr = np.full((2, b, nl, nt, kt), INT_MAX, vc.dtype)
+    cl[..., 0], cr[..., -1] = cin, cout
+    for j in range(1, kt):
+        q = kt - 1 - j
+        cl[..., j] = _fold(cl[..., j - 1], tail[..., j - 1], full[..., j - 1])
+        cr[..., q] = _fold(cr[..., q + 1], head[..., q + 1], full[..., q + 1])
+    lead = np.cumprod(mc, -1).astype(bool)  # each chunk's first run and last run
+    trail = np.cumprod(mc[..., ::-1], -1)[..., ::-1].astype(bool)
+    vc = np.minimum(vc, np.where(lead, cl.reshape(b, nl, -1)[..., None], INT_MAX))
+    vc = np.minimum(vc, np.where(trail, cr.reshape(b, nl, -1)[..., None], INT_MAX))
+    out = vc.reshape(b, nl, n)
+    return out.transpose(0, 2, 1) if axis == 0 else out
+
+
+def _emulated_tiled_runs(v0, open_, n_outer, tile=(128, 256), chunk=32, fault=None):
+    """Replay of `seg_min.cu` on (B, H, W) numpy state `v0` (raster index or
+    seed) and bool mask: tiles of `tile` pixels, padded past the ragged last
+    ones with closed pixels; INT_MAX where closed (the re-mask, at load and in
+    every walk); `n_outer` passes of a column phase, then a row phase.
+    `fault` plants one bug: "one_neighbour", "open_padding", "rows_first" or
+    "no_remask"."""
+    b, h, w = v0.shape
+    tr, tc = tile
+    hp, wp = -(-h // tr) * tr, -(-w // tc) * tc
+    m = np.full((b, hp, wp), fault == "open_padding")
+    m[:, :h, :w] = open_
+    v = np.full((b, hp, wp), INT_MAX, np.int64)
+    v[:, :h, :w] = v0 if fault == "no_remask" else np.where(open_, v0, INT_MAX)
+    for _ in range(n_outer):
+        for axis in ((1, 0) if fault == "rows_first" else (0, 1)):
+            v = _emulated_phase(v, m, axis, tr if axis == 0 else tc, chunk, fault)
+    return v[:, :h, :w].astype(np.int32)
+
+
+def _emulated_cc(m, n_outer, **kw):
+    b, h, w = m.shape
+    lab = _emulated_tiled_runs(np.broadcast_to(np.arange(h * w).reshape(1, h, w), m.shape), m,
+                               n_outer, **kw)
+    return np.where(m, lab + 1, 0).astype(np.int32)
+
+
+def _b4_seeds(rng, shape):
+    """int32 seeds over the whole range, INT_MAX and negatives included."""
+    seed = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    seed[:, ::3, ::4] = INT_MAX
+    return seed
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_b2_b4(n_outer):
+    """The Pallas kernels in interpret mode on `_shapes` and `_b4_seeds`."""
+    rng = np.random.default_rng(0)
+    m = _shapes(rng)
+    seed = _b4_seeds(rng, m.shape)
+    lab = connected_components_pallas(jnp.asarray(m), n_outer=n_outer, interpret=True)
+    pm = propagate_min_pallas(jnp.asarray(seed), jnp.asarray(m), n_outer=n_outer, interpret=True)
+    return m, seed, np.asarray(lab), np.asarray(pm)
+
+
+@pytest.mark.parametrize("tile,chunk", [((128, 256), 32), ((24, 40), 8), ((8, 16), 4)])
+@pytest.mark.parametrize("n_outer", [1, 2, 3, 4])
+def test_emulated_tiled_runs_match_plain_and_pallas(n_outer, tile, chunk):
+    """The replay of `seg_min.cu`, at its own tile and at tiles that leave
+    ragged last tiles (64 × 96 in 24 × 40) or put a line across 12 tiles,
+    equals the plain versions and the Pallas kernels exactly: B2 on the
+    spiral, the U shape and blobs; B4 on seeds over all of int32."""
+    m, seed, want_lab, want_pm = _pallas_b2_b4(n_outer)
+    lab = _emulated_cc(m, n_outer, tile=tile, chunk=chunk)
+    np.testing.assert_array_equal(lab, want_lab)
+    np.testing.assert_array_equal(
+        lab, cc_cuda.connected_components_plain(torch.from_numpy(m), n_outer).numpy())
+    pm = _emulated_tiled_runs(seed, m, n_outer, tile=tile, chunk=chunk)
+    np.testing.assert_array_equal(pm, want_pm)
+    np.testing.assert_array_equal(
+        pm, cc_cuda.propagate_min_plain(torch.from_numpy(seed), torch.from_numpy(m), n_outer).numpy())
+    if n_outer == 3:  # the fixed-pass result: the spiral stays split
+        assert len(np.unique(lab[1])) > 2
+
+
+@pytest.mark.parametrize("fault", ["one_neighbour", "open_padding", "rows_first", "no_remask"])
+def test_emulated_tiled_runs_fail_planted_faults(rng, fault):
+    """Each planted fault changes the result, after one pass or three, on
+    shapes that exercise it: a bar across all three 40-column tiles of a row
+    (a run carried one tile only: wrong after one pass), separate bars that
+    end on the bottom and right edges of ragged tiles (padding treated as
+    open joins them, seen from the second pass), the spiral and U shape (rows
+    first) and B4's INT_MAX background (the re-mask skipped)."""
+    m = _shapes(rng)
+    m[2, 40:, :] = False
+    m[2, :30, 70:] = False
+    m[2, 45, :] = True            # a bar across the whole row
+    m[2, 50:, 10] = m[2, 50:, 30] = True
+    m[2, 5, 80:] = m[2, 20, 80:] = True
+    kw = dict(tile=(24, 40), chunk=8)
+    caught = []
+    for n_outer in (1, 3):
+        want = cc_cuda.connected_components_plain(torch.from_numpy(m), n_outer).numpy()
+        np.testing.assert_array_equal(_emulated_cc(m, n_outer, **kw), want)
+        seed = _b4_seeds(rng, m.shape)
+        want_pm = cc_cuda.propagate_min_plain(torch.from_numpy(seed), torch.from_numpy(m),
+                                              n_outer).numpy()
+        np.testing.assert_array_equal(_emulated_tiled_runs(seed, m, n_outer, **kw), want_pm)
+        if fault == "no_remask":
+            bad = _emulated_tiled_runs(seed, m, n_outer, fault=fault, **kw)
+            caught.append(bool((bad != want_pm)[~m].any()))
+        else:
+            caught.append(bool((_emulated_cc(m, n_outer, fault=fault, **kw) != want).any()))
+    assert any(caught), caught
 
 
 @pytest.mark.parametrize("compact", [False, True])

@@ -23,6 +23,7 @@ def cuda():
 
 
 def _masks(seed, b=2, h=96, w=160):
+    """Random masks (55% open) with a U shape in image 0."""
     rng = np.random.default_rng(seed)
     m = rng.random((b, h, w)) < 0.55
     m[0, 10:60, 10:13] = m[0, 57:60, 10:60] = m[0, 10:60, 57:60] = True
@@ -49,18 +50,47 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
         attention.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("n_outer", [1, 3])
-def test_scan_kernels_match_plain(cuda, n_outer):
-    fg = _masks(n_outer).to(cuda)
+# the resident-tile kernel of B2/B4 (128 × 256 tiles): the test masks, more
+# passes, a 9-image batch of 1024² (more than one wave of images), ragged
+# shapes that no tile divides, a single row and column, its 1400² reach, and
+# an all-open image (one run across every tile) and an all-closed one
+@pytest.mark.parametrize("b,h,w,n_outer,fill", [
+    (2, 96, 160, 1, None), (2, 96, 160, 3, None), (2, 96, 160, 4, None), (9, 1024, 1024, 3, None),
+    (1, 1000, 1030, 3, None), (2, 224, 256, 3, None), (2, 1, 700, 3, None), (2, 700, 1, 3, None),
+    (1, 1400, 1400, 3, None), (2, 300, 520, 3, True), (2, 300, 520, 3, False),
+])
+def test_scan_kernels_match_plain(cuda, b, h, w, n_outer, fill):
+    fg = _masks(n_outer + h + w, b, h, w).to(cuda)
+    if fill is not None:
+        fg[:] = fill
+    before = dict(_build.LAUNCHES)
     lab = cc_cuda.connected_components_cuda(fg, n_outer)
+    assert _build.LAUNCHES["connected_components"] == before["connected_components"] + 1
     assert torch.equal(lab, cc_cuda.connected_components_plain(fg, n_outer))
     seed, open_ = cc_cuda.border_seed(fg), ~fg
     assert torch.equal(cc_cuda.flood_cuda(seed, open_, n_outer),
                        cc_cuda.flood_plain(seed, open_, n_outer))
     rank = torch.arange(fg[0].numel(), device=cuda, dtype=torch.int32).reshape(fg.shape[1:])
-    seed = torch.where(lab > 0, rank.expand_as(lab), cc_cuda.INT_MAX)
-    assert torch.equal(cc_cuda.propagate_min_cuda(seed, fg, n_outer),
-                       cc_cuda.propagate_min_plain(seed, fg, n_outer))
+    g = torch.Generator(device=cuda).manual_seed(h + w)
+    wide = torch.randint(-2**31, 2**31 - 1, fg.shape, generator=g, device=cuda, dtype=torch.int32)
+    wide[..., ::3] = cc_cuda.INT_MAX  # B4 takes any int32 seed, INT_MAX and negatives included
+    for seed in (torch.where(lab > 0, rank.expand_as(lab), cc_cuda.INT_MAX), wide):
+        n = _build.LAUNCHES["propagate_min"]
+        got = cc_cuda.propagate_min_cuda(seed, fg, n_outer)
+        assert _build.LAUNCHES["propagate_min"] == n + 1
+        assert torch.equal(got, cc_cuda.propagate_min_plain(seed, fg, n_outer))
+    assert torch.equal(cc_cuda.compact_root_labels_cuda(lab, n_outer),
+                       cc_cuda.compact_root_labels_cuda(lab.cpu(), n_outer).to(cuda))
+
+
+@pytest.mark.parametrize("h,w", [(1537, 64), (64, 2049)])
+def test_scan_kernels_refuse_beyond_their_limit(cuda, h, w):
+    fg = torch.ones((1, h, w), dtype=torch.bool, device=cuda)
+    limit = str(cc_cuda.RESIDENT_MAX_HW[0] if h > w else cc_cuda.RESIDENT_MAX_HW[1])
+    with pytest.raises(ValueError, match=limit):
+        cc_cuda.connected_components_cuda(fg)
+    with pytest.raises(ValueError, match=limit):
+        cc_cuda.propagate_min_cuda(torch.zeros_like(fg, dtype=torch.int32), fg)
 
 
 def _bf16(g, shape, device, std=1.0):
