@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "seg_scan.cu", "seg_min.cu", "win_qkv_attn.cu",
+SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "flood_bits.cu", "seg_min.cu", "win_qkv_attn.cu",
            "relpos_attn.cu", "win_attn.cu", "rm_small.cu", "watershed.cu", "conv3x3_cm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,8 @@ PyTorch version of the same function on a CPU tensor, and each a
   the decomposed rel-pos bias added to each logits tile, for SAM's global
   blocks.
 - `window_attention` (B7, `csrc/win_attn.cu`): whole-window attention over
-  N ≤ 256 tokens on the lane-augmented q′/k′ of `relpos_aug`.
+  N ≤ 256 tokens on the lane-augmented q′/k′ of `relpos_aug`, on wgmma with
+  the whole logits row in registers.
 
 `flash_attention_relpos` routes a SAM rel-pos attention to B6, B7 or B1 by
 the grid's shape, as the JAX package does. The kernels take bf16 and
@@ -81,8 +82,9 @@ WIN_QKV_BOUNDS = {"max": 3e-2, "mean": 1.2e-2, "l2": 1e-2}
 #: grid. Swapping Bh and Bw, or a column index off by one, gives ≥ 1.0.
 RELPOS_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 8e-3}
 #: B7, relative to |o|: rounding p and o to bf16 gives 2.0e-3 in "l2" on a
-#: 14×16 grid; the zero-filled keys of the last tile left unmasked give
-#: 4.0e-2 in "l2" and "mean".
+#: 14×16 grid; the zero-filled keys past N of the last 128-key tile left
+#: unmasked give 4.0e-2 in "l2" and "mean", nonzero pad columns of q′/k′
+#: 1.3, the output one head off 1.4 (`tests/test_torch_sam.py`).
 WINDOW_BOUNDS = {"max": 2e-2, "mean": 1e-2, "l2": 8e-3}
 
 
@@ -486,17 +488,29 @@ def rel_pos_bias(q: torch.Tensor, rel_pos_h: torch.Tensor, rel_pos_w: torch.Tens
     return bh.reshape(b, n, h, gh), bw.reshape(b, n, h, gw)
 
 
+def _cat_lanes(parts) -> torch.Tensor:
+    """`torch.cat(parts, -1)`, in storage whose rows are zero-padded to a
+    multiple of 8 elements (16 bytes in bf16, as TMA needs of every stride),
+    returned as a view of the real width."""
+    width = sum(t.shape[-1] for t in parts)
+    pad = -width % 8
+    if pad:
+        parts = [*parts, parts[0].new_zeros(parts[0].shape[:-1] + (pad,))]
+    return torch.cat(parts, dim=-1)[..., :width]
+
+
 def relpos_aug(q: torch.Tensor, k: torch.Tensor, bh: torch.Tensor, bw: torch.Tensor,
                grid_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lane-augmented q′ = [q·scale | Bh | Bw] and k′ = [k | 1{row} | 1{col}]
-    (`_relpos_aug`): q′·k′ᵀ = q·kᵀ·scale + Bh[q, row(k)] + Bw[q, col(k)]."""
+    (`_relpos_aug`): q′·k′ᵀ = q·kᵀ·scale + Bh[q, row(k)] + Bw[q, col(k)].
+    Each is a view of D + gh + gw columns with rows padded to 8 elements."""
     gh, gw = grid_hw
     b, n, h, d = q.shape
     t = torch.arange(n, device=q.device)
     onehot = torch.cat([torch.nn.functional.one_hot(t // gw, gh),
                         torch.nn.functional.one_hot(t % gw, gw)], dim=-1).to(k.dtype)
-    q_aug = torch.cat([q * d**-0.5, bh, bw], dim=-1)
-    k_aug = torch.cat([k, onehot[None, :, None, :].expand(b, n, h, gh + gw)], dim=-1)
+    q_aug = _cat_lanes([q * d**-0.5, bh, bw])
+    k_aug = _cat_lanes([k, onehot[None, :, None, :].expand(b, n, h, gh + gw)])
     return q_aug, k_aug
 
 
@@ -634,6 +648,9 @@ def _window_attention_cuda(q, k, v) -> torch.Tensor:
     for name, t in (("q", q), ("k", k)):
         if t.dtype != torch.bfloat16 or t.stride(-1) != 1:
             raise ValueError(f"window attention kernel needs bf16 {name} with unit last stride")
+    # TMA maps need 16-byte strides: q′/k′ from `relpos_aug` have them; copy others
+    q, k = (t if all(s % 8 == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0
+            else _cat_lanes([t]) for t in (q, k))
     _check_rows("window attention", v, "v")
     o = torch.empty((b, n, h, d), dtype=v.dtype, device=v.device)
     fn = _build.bind("win_attn.cu", "win_attn_fwd", "ppppiiiiiiiiiiiiii")

@@ -11,13 +11,15 @@ re-mask — exactly the Pallas kernels' schedule, so on shapes that need more
 turns than `n_outer` the result equals the Pallas kernel's, not a converged
 labeler's. On a CPU tensor the plain versions below run, which scan by the
 same doubling steps as the Pallas kernels (`_segmin_direction`,
-`_segor_direction`). On a CUDA tensor the flood runs the scan kernels of
-`csrc/seg_scan.cu`; connected components and min-propagation run
-`csrc/seg_min.cu`, one launch a call with each image's state resident in
-shared memory, which applies a pass as two run-min broadcasts (columns, then
-rows): a forward min-scan, the re-mask and a reverse min-scan give each open
-pixel the minimum of its whole run. Every exact schedule gives the same
-bits, so kernels and plain versions agree exactly.
+`_segor_direction`). On a CUDA tensor each op is one launch that applies a
+pass as two run broadcasts (columns, then rows): a forward scan, the re-mask
+and a reverse scan give each open pixel the minimum (or OR) of its whole
+run. Connected components and min-propagation run `csrc/seg_min.cu`, with
+each image's int32 state resident in the shared memory of a group of
+blocks; the flood and hole filling run `csrc/flood_bits.cu`, with each
+image's state and mask packed one bit a pixel in the registers of a
+thread-block cluster. Every exact schedule gives the same bits, so kernels
+and plain versions agree exactly.
 """
 
 from __future__ import annotations
@@ -29,15 +31,20 @@ import torch
 from cellvit_tpu_torch import _build
 
 INT_MAX = torch.iinfo(torch.int32).max
-# the flood's axis-0 kernel holds a 32-column strip of the whole image height
-# (5 bytes a pixel) in one block's 227 KB of shared memory
-MAX_HEIGHT = 1400
 #: `csrc/seg_min.cu` (B2, B4) keeps a 128 × 256 tile in each block and folds
 #: runs across at most 12 tiles down a column and 8 along a row
 RESIDENT_TILE = (128, 256)
 RESIDENT_MAX_HW = (12 * 128, 8 * 256)
 #: its barrier words, two per group of one image's tiles (512 groups)
 _SYNC_WORDS = 2 * 512
+#: `csrc/flood_bits.cu` (B3) holds an image in the registers of a cluster
+#: of at most 8 blocks of 32 warps, a warp's thread at most 16 words of 32
+#: pixels of each of the state and the mask: ≤ 64 words a row, and rows
+#: ≤ 8 blocks · 32 warps · 8 rows at 33-64 words a row
+FLOOD_MAX_HW = (2048, 2048)
+#: its blocks an image (a cluster): 8, the portable maximum, took less time
+#: than 2 or 4 (`scripts/flood_bits_variants.py`)
+FLOOD_CLUSTER = 8
 
 Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -105,7 +112,7 @@ def flood_plain(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> to
 # ----------------------------------------------------------- kernel wrappers
 
 
-def _check_mask(name: str, t: torch.Tensor, max_hw=(MAX_HEIGHT, None)) -> torch.Tensor:
+def _check_mask(name: str, t: torch.Tensor, max_hw) -> torch.Tensor:
     if t.dim() != 3:
         raise ValueError(f"{name} must be (B, H, W); got {tuple(t.shape)}")
     for size, limit, what in zip(t.shape[1:], max_hw, ("height", "width")):
@@ -174,24 +181,40 @@ def propagate_min_cuda(seed: torch.Tensor, fg: torch.Tensor, n_outer: int = 3) -
     return out
 
 
+def flood_cluster(h: int, w: int) -> int:
+    """Blocks an image of B3's cluster launch: `FLOOD_CLUSTER`, fewer where
+    the image has rows for fewer blocks of 32 rows."""
+    k = FLOOD_CLUSTER
+    while k > 1 and 32 * (k // 2) >= h:
+        k //= 2
+    return k
+
+
+def _flood_bits(inputs, n_outer: int) -> torch.Tensor:
+    """One launch of `csrc/flood_bits.cu` on clusters of `flood_cluster`
+    blocks an image: the flood of (seed, open), or the hole filling of
+    (mask,). Returns the bool result."""
+    b, h, w = inputs[0].shape
+    out = torch.empty((b, h, w), dtype=torch.bool, device=inputs[0].device)
+    if len(inputs) == 2:
+        name, fn = "flood_bits", _build.bind("flood_bits.cu", "flood_bits", "pppiiiii")
+    else:
+        name, fn = "fill_holes_bits", _build.bind("flood_bits.cu", "fill_holes_bits", "ppiiiii")
+    _build.LAUNCHES["flood"] += 1
+    _build.check(fn(*(t.data_ptr() for t in inputs), out.data_ptr(), b, h, w, n_outer,
+                    flood_cluster(h, w), _build.stream_of(out)), name)
+    return out
+
+
 def flood_cuda(seed: torch.Tensor, open_: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
     """Reachability of `seed` through `open_` by `n_outer` scan passes
     (kernel B3 on CUDA)."""
     if _device_kind(seed) == "cpu":
         return flood_plain(seed, open_, n_outer)
-    seed, open_ = _check_mask("seed", seed), _check_mask("open_", open_)
+    seed, open_ = _check_mask("seed", seed, FLOOD_MAX_HW), _check_mask("open_", open_, FLOOD_MAX_HW)
     if seed.shape != open_.shape:
         raise ValueError(f"seed {tuple(seed.shape)} and open {tuple(open_.shape)} differ")
-    b, h, w = seed.shape
-    out = torch.empty((b, h, w), dtype=torch.int32, device=seed.device)
-    fn = _build.bind("seg_scan.cu", "flood", "pppiiii")
-    _build.LAUNCHES["flood"] += 1
-    _build.check(
-        fn(seed.data_ptr(), open_.data_ptr(), out.data_ptr(), b, h, w, n_outer,
-           _build.stream_of(seed)),
-        "flood",
-    )
-    return out != 0
+    return _flood_bits((seed, open_), n_outer)
 
 
 def root_rank_seed(lab: torch.Tensor) -> torch.Tensor:
@@ -227,10 +250,13 @@ def border_seed(mask: torch.Tensor) -> torch.Tensor:
 
 
 def fill_holes_cuda(mask: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
-    """(B, H, W) binary_fill_holes via a border flood of the background."""
-    bg = ~mask
-    reach = flood_cuda(border_seed(mask), bg, n_outer)
-    return mask | (bg & ~reach)
+    """(B, H, W) binary_fill_holes via a border flood of the background
+    (`fill_holes_pallas`): on CUDA one launch of B3 that reads the mask
+    alone and writes mask | (~mask & ~reach)."""
+    if _device_kind(mask) == "cpu":
+        bg = ~mask
+        return mask | (bg & ~flood_plain(border_seed(mask), bg, n_outer))
+    return _flood_bits((_check_mask("mask", mask, FLOOD_MAX_HW),), n_outer)
 
 
 # ------------------------------------------- size filters and the watershed

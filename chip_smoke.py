@@ -12,19 +12,25 @@
    resident-tile launch a call, also on a 9-image batch (more than one wave
    of images) whose last image is all open, with their times in two runs,
    host µs and device kernels per call (`torch.profiler`), and B4's whole
-   op `compact_root_labels_cuda`; SAM-H's window qkv attention (B5) on 200
+   op `compact_root_labels_cuda`; the flood (B3, one bit-packed cluster
+   launch a call) and its hole-filling entry likewise, also on an
+   all-closed image, with the whole op `fill_holes_cuda` and the cluster
+   width; SAM-H's window qkv attention (B5) on 200
    windows of 196 tokens (C = 1280), and on SAM-B's and SAM-L's widths
    (head dim 64), its direct-bias flash attention on (8, 4096, 16, 80) and
-   its whole-window attention on a 14×16 grid, each within its bf16 bound.
+   its whole-window attention (B7) on the 14×16 grid of a 224×256 tile and
+   the 16×16 grids of a batch of 8 256² tiles, each within its bf16 bound;
+   B7 also beside B1 on the same q′/k′, and the SASS of its instantiations
+   checked for HGMMA.
    B5's phase also times its projection kernel beside `torch.matmul` of the
    same product and its three kernels by `torch.profiler`.
    Each phase times the kernel, the plain version and, where one exists, one
    PyTorch library call of the same function, beside the least time the card
    could take (for the attention kernels also their exponentials over the
-   SFUs' rate at the card's maximum SM clock). B1, B5 and B6, on wgmma and
-   TMA, also print their TFLOP/s and host µs per call, and the build prints
-   the ptxas spill bytes of every instantiation of theirs, of B8 and of
-   B2/B4's kernel.
+   SFUs' rate at the card's maximum SM clock). B1, B5, B6 and B7, on wgmma
+   and TMA, also print their TFLOP/s and host µs per call, and the build
+   prints the ptxas spill bytes of every instantiation of theirs, of B8, of
+   B2/B4's kernel and of B3's.
 4. Drives the main paths through `CellSegmentationInference` on batches of
    8 × 1024² synthetic blob tiles, bf16, one warm-up batch and timed
    batches each: a full-width CellViT-256, then a full-width CellViT-SAM-H
@@ -160,6 +166,16 @@ def queued_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
+def kernel_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of `fn`, its launches queued back to back behind a
+    spin kernel (`queued_ms`): for kernels that take less time than the host
+    needs to enqueue a call, which `time_ms` would measure instead. The
+    median of three such runs: a host stall longer than the spin lets the
+    queue drain, and one run then reads tens of times the kernel's time."""
+    fn()
+    return sorted(queued_ms(lambda: [fn() for _ in range(reps)]) / reps for _ in range(3))[1]
+
+
 def host_us(fn, calls: int = 200) -> float:
     """Host µs per call of `fn` (an enqueue: the launches are not waited
     for), over `calls` back-to-back calls after a warm-up."""
@@ -175,7 +191,8 @@ def host_us(fn, calls: int = 200) -> float:
 
 def device_kernels(fn, calls: int = 10) -> str:
     """The device kernels of `calls` calls of `fn` after a warm-up, counted
-    by `torch.profiler`, as "n calls: {kernel: launches}"."""
+    by `torch.profiler`, as "n calls: {kernel: (launches, device µs a
+    call)}"."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -186,14 +203,14 @@ def device_kernels(fn, calls: int = 10) -> str:
     for e in prof.key_averages():
         if e.self_device_time_total > 0:
             m = re.search(r"\w+(<[^>]*>)?(?=\()", e.key)
-            counts[m.group(0) if m else e.key] = e.count
+            counts[m.group(0) if m else e.key] = (e.count, round(e.self_device_time_total / calls, 2))
     return f"{calls} calls: {counts}"
 
 
-def scan_times(name: str, kd: dict, fn) -> None:
+def scan_times(name: str, kd: dict, fn, timer=time_ms) -> None:
     """Print a scan kernel's time in two runs beside its bound, its host µs
     per call and the device kernels its calls run."""
-    print(f"  {name}: kernel_ms {kd['ms']:.4f} / {time_ms(fn):.4f}, bound_ms {kd['bound'][0]:.4f} "
+    print(f"  {name}: kernel_ms {kd['ms']:.4f} / {timer(fn):.4f}, bound_ms {kd['bound'][0]:.4f} "
           f"({kd['bound'][1]}); host µs per call (enqueue, 200 calls) {host_us(fn):.1f}; "
           f"device kernels over {device_kernels(fn)}")
 
@@ -417,13 +434,13 @@ def flash_bwd_timing(label: str, phase, scale: float, kernels=None):
     (q, k, v, o, lse, do, ops), max_errs = phase
     b, n, h, dqk = q.shape
     dv = v.shape[-1]
-    kernel_ms = time_ms(lambda: attention._flash_bwd_launch(*ops, scale), 20)
+    bwd_ms = time_ms(lambda: attention._flash_bwd_launch(*ops, scale), 20)
     op_ms = time_ms(lambda: attention._flash_backward(q, k, v, o, lse, do, scale), 20)
     bnd, flops = flash_bwd_bound(b, n, h, dqk, dv)
     sdpa = sdpa_bwd_ms(q, k, v, do)
     ok = {k_: t for k_, t in sdpa.items() if t is not None}
     best = min(ok, key=ok.get) if ok else None
-    print(f"  B8 at {label}: kernel_ms {kernel_ms:.4f} ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
+    print(f"  B8 at {label}: kernel_ms {bwd_ms:.4f} ({flops / bwd_ms / 1e9:.1f} TFLOP/s), "
           f"whole op ms {op_ms:.4f}, fused bound_ms {bnd[0]:.4f} ({bnd[1]}, {flops / 1e9:.1f} GFLOP); "
           "SDPA backward ms " + ", ".join(f"{k_} {t:.4f}" if t is not None else f"{k_} refused"
                                           for k_, t in sdpa.items())
@@ -432,7 +449,7 @@ def flash_bwd_timing(label: str, phase, scale: float, kernels=None):
         kernels["flash_attention_bwd"] = dict(
             route="cuda", source="cellvit_tpu_torch/csrc/flash_attn_bwd.cu",
             replaces="cellvit_tpu/ops/attention.py:106 and :143", max_abs_err=max(max_errs),
-            ms=kernel_ms,
+            ms=bwd_ms,
             plain_ms=time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale), 2),
             library_ms=ok[best] if best else None, bound=bnd)
 
@@ -468,6 +485,27 @@ def ptxas_spills(text: str) -> dict:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             spills[entry] = (nums[1], nums[2])
     return spills
+
+
+def sass_hgmma(src: str) -> dict:
+    """{kernel: HGMMA instructions in its SASS} of one built source, by
+    `cuobjdump -sass`, each kernel named by `kernel_name`."""
+    from pathlib import Path
+
+    from cellvit_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool) if tool.exists() else "cuobjdump", "-sass", str(_build.lib_path(src))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
 
 
 def grad_check(name: str, fn, plain, inputs, gen) -> None:
@@ -885,11 +923,17 @@ def main() -> int:
                         ("flash_attn_bwd.cu", "<KB, DV>"),
                         ("win_qkv_attn.cu", "flash <KB, KS, DV, BK, bias (-1: EXPAND), warpgroups, "
                                             "turns>; terms <D>"),
-                        ("seg_min.cu", "<seed>")):
+                        ("seg_min.cu", "<seed>"),
+                        ("flood_bits.cu", "<rows a warp, words a lane, mode (0 flood, 1 fill_holes)>"),
+                        ("win_attn.cu", "<DV, key tiles>")):
         if src in report:
             spills = ptxas_spills(report[src][1])
             print(f"  {src} spill bytes (stores, loads) per instantiation {params}: "
                   + ", ".join(f"{e}: {v}" for e, v in spills.items()))
+
+    hgmma = sass_hgmma("win_attn.cu")
+    print(f"  win_attn.cu HGMMA instructions per instantiation <DV, key tiles> (cuobjdump -sass): {hgmma}")
+    require(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()), "B7: an instantiation has no HGMMA")
 
     kernels = {}
 
@@ -956,19 +1000,45 @@ def main() -> int:
     )
     scan_times("B2", kernels["connected_components"], lambda: cc_cuda.connected_components_cuda(fg, 3))
 
+    # B3: the flood entry and the hole-filling entry, one bit-packed cluster
+    # launch a call, on the smoke's masks, a 9-image batch whose last image
+    # is all open, and an all-closed image
     seed = cc_cuda.border_seed(fg)
     open_ = ~fg
     reach = cc_cuda.flood_cuda(seed, open_, 2)
     n_diff = int((reach != cc_cuda.flood_plain(seed, open_, 2)).sum())
-    print(f"B3 flood: {n_diff} px differ (exact required)")
-    require(n_diff == 0, "flood kernel disagrees")
+    fill_want = lambda m: m | (~m & ~cc_cuda.flood_plain(cc_cuda.border_seed(m), ~m, 2))
+    filled = cc_cuda.fill_holes_cuda(fg, 2)
+    n_diff_fill = int((filled != fill_want(fg)).sum())
+    fg9 = torch.cat([fg, torch.zeros_like(fg[:1])])
+    closed = torch.ones_like(fg[:1])
+    diffs = [int((cc_cuda.flood_cuda(cc_cuda.border_seed(m), ~m, 2)
+                  != cc_cuda.flood_plain(cc_cuda.border_seed(m), ~m, 2)).sum())
+             + int((cc_cuda.fill_holes_cuda(m, 2) != fill_want(m)).sum()) for m in (fg9, closed)]
+    print(f"B3 flood / fill_holes: {n_diff} / {n_diff_fill} px differ (exact required), reach "
+          f"{reach.dtype}; 9-image batch with image 8 all open, and an all-closed image: {diffs} px differ; "
+          f"image 8 reached whole: {bool(cc_cuda.flood_cuda(cc_cuda.border_seed(fg9), ~fg9, 2)[8].all())}")
+    require(n_diff == 0 and n_diff_fill == 0 and diffs == [0, 0], "flood kernel disagrees")
+    del fg9, closed
+    # kernel ms: device time of launches queued back to back (a call takes
+    # the host longer than the kernel takes the card)
+    flood = lambda: cc_cuda.flood_cuda(seed, open_, 2)
+    fill = lambda: cc_cuda.fill_holes_cuda(fg, 2)
     kernels["flood"] = dict(
-        route="cuda", source="cellvit_tpu_torch/csrc/seg_scan.cu",
-        replaces="cellvit_tpu/ops/cc_pallas.py:225", max_abs_err=float(n_diff),
-        ms=time_ms(lambda: cc_cuda.flood_cuda(seed, open_, 2)),
+        route="cuda", source="cellvit_tpu_torch/csrc/flood_bits.cu",
+        replaces="cellvit_tpu/ops/cc_pallas.py:225", max_abs_err=float(n_diff + n_diff_fill),
+        ms=kernel_ms(flood),
         plain_ms=time_ms(lambda: cc_cuda.flood_plain(seed, open_, 2), 3),
         library_ms=None, bound=bound_ms(2 * n_px + n_px),
     )
+    scan_times("B3 flood", kernels["flood"], flood, kernel_ms)
+    fill_kd = dict(ms=kernel_ms(fill), bound=bound_ms(n_px + n_px))
+    scan_times("B3 fill_holes_cuda (the whole op)", fill_kd, fill, kernel_ms)
+    print(f"  B3 through the wrappers, CUDA events around 10 calls (host-paced): flood {time_ms(flood):.4f}, "
+          f"fill_holes_cuda {time_ms(fill):.4f} ms")
+    print(f"  B3 cluster width: {cc_cuda.flood_cluster(*fg.shape[1:])} blocks an image (FLOOD_CLUSTER "
+          f"{cc_cuda.FLOOD_CLUSTER}; other widths: scripts/flood_bits_variants.py)")
+    del reach, filled
 
     lab_fg = lab > 0
     rank_seed = cc_cuda.root_rank_seed(lab)
@@ -987,7 +1057,7 @@ def main() -> int:
     compact = lambda: cc_cuda.compact_root_labels_cuda(lab, 3)
     print(f"  B4's op compact_root_labels_cuda (rank seed cumsum, B4, select): {time_ms(compact):.4f} / "
           f"{time_ms(compact):.4f} ms; device kernels over {device_kernels(compact)}")
-    del fg, lab, plab, seed, open_, reach, lab_fg, rank_seed, pm
+    del fg, lab, plab, seed, open_, lab_fg, rank_seed, pm
 
     # ---- B5 window qkv attention at SAM-H's windowed blocks: 8 tiles' 64×64
     # token grids of LN'd-like tokens cut into 200 zero-padded windows; then
@@ -1082,28 +1152,44 @@ def main() -> int:
           f"{host_us(lambda: attention.relpos_flash_attention(q, k, v, bh, bw)):.1f}")
     del qkv, q, k, v, rh, rw, bh, bw, o, po, bias, qt, kt, vt
 
-    # ---- B7 whole-window attention at a 224×256 tile's global blocks (14×16)
+    # ---- B7 whole-window attention at a 224×256 tile's global blocks (14×16),
+    # then at a batch of 8 256² tiles' (16×16), with SAM-H's tables
     gh, gw = SMALL_TILE[0] // 16, SMALL_TILE[1] // 16
-    n = gh * gw
-    qkv = torch.randn((1, n, 3, heads, hd), generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    rh = (torch.randn((gh, gh, hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-    rw = (torch.randn((gw, gw, hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
-    qa, ka = attention.relpos_aug(q, k, *attention.rel_pos_bias(q, rh, rw, (gh, gw)), (gh, gw))
-    o = attention.window_attention(qa, ka, v)
-    po = attention.window_attention_plain(qa, ka, v)
-    max_err = check_attention("B7 window attention", o, po, attention.WINDOW_BOUNDS)
-    qt, kt, vt = (t.transpose(1, 2) for t in (qa, ka, v))
-    kernels["window_attention"] = dict(
-        route="cuda", source="cellvit_tpu_torch/csrc/win_attn.cu",
-        replaces="cellvit_tpu/ops/attention.py:257", max_abs_err=max_err,
-        ms=time_ms(lambda: attention.window_attention(qa, ka, v), 20),
-        plain_ms=time_ms(lambda: attention.window_attention_plain(qa, ka, v), 10),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), 20),
-        bound=bound_ms(2 * (qa.numel() + ka.numel() + 2 * v.numel()),
-                       2.0 * heads * n * n * (qa.shape[-1] + hd)),
-    )
-    del qkv, q, k, v, rh, rw, qa, ka, o, po, qt, kt, vt
+    for batch, grid_hw in ((1, (gh, gw)), (BATCH, (16, 16))):
+        n = grid_hw[0] * grid_hw[1]
+        qkv = torch.randn((batch, n, 3, heads, hd), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        rh = (torch.randn((grid_hw[0], grid_hw[0], hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        rw = (torch.randn((grid_hw[1], grid_hw[1], hd), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        qa, ka = attention.relpos_aug(q, k, *attention.rel_pos_bias(q, rh, rw, grid_hw), grid_hw)
+        o = attention.window_attention(qa, ka, v)
+        po = attention.window_attention_plain(qa, ka, v)
+        label = f"({batch}, {n}, {heads}, q′/k′ {qa.shape[-1]}, v {hd}), {grid_hw[0]}×{grid_hw[1]} grid"
+        max_err = check_attention(f"B7 window attention {label}", o, po, attention.WINDOW_BOUNDS)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qa, ka, v))
+        flops = 2.0 * batch * heads * n * n * (qa.shape[-1] + hd)
+        kd = dict(
+            route="cuda", source="cellvit_tpu_torch/csrc/win_attn.cu",
+            replaces="cellvit_tpu/ops/attention.py:257", max_abs_err=max_err,
+            ms=kernel_ms(lambda: attention.window_attention(qa, ka, v)),
+            plain_ms=time_ms(lambda: attention.window_attention_plain(qa, ka, v), 10),
+            library_ms=kernel_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0)),
+            bound=bound_ms(2 * (qa.numel() + ka.numel() + 2 * v.numel()), flops, float(batch * heads * n * n)),
+        )
+        # the alternative design on the same operands: B1's online-softmax
+        # kernel on q′/k′ read 8 columns wide (their zero padding included)
+        qp, kp = (t.as_strided(t.shape[:-1] + (-(-t.shape[-1] // 8) * 8,), t.stride()) for t in (qa, ka))
+        b7 = lambda: attention.window_attention(qa, ka, v)
+        b1_ms = kernel_ms(lambda: attention.flash_attention(qp, kp, v, scale=1.0))
+        print(f"  B7 {label}: kernel_ms {kd['ms']:.4f} / {kernel_ms(b7):.4f} "
+              f"({flops / kd['ms'] / 1e9:.1f} TFLOP/s; device time queued back to back), CUDA events around "
+              f"20 calls (host-paced) {time_ms(b7, 20):.4f}, SDPA (scale 1) {kd['library_ms']:.4f}, plain "
+              f"{kd['plain_ms']:.4f}, bound_ms {kd['bound'][0]:.4f} ({kd['bound'][1]}); B1 on the same "
+              f"q′/k′ {b1_ms:.4f}; host µs per window_attention call (enqueue, 200 calls) {host_us(b7):.1f}; "
+              f"device kernels over {device_kernels(b7)}")
+        if batch == 1:  # the 224×256 tile's shape is the main path's
+            kernels["window_attention"] = kd
+        del qkv, q, k, v, rh, rw, qa, ka, o, po, qt, kt, vt, qp, kp, b7
 
     # ---- B1 widened: q′/k′ wider than v. A ragged 20×20 SAM-H grid fits
     # neither B6 nor B7 and takes B1 on q′/k′ 80 + 20 + 20 wide, scale 1; the
@@ -1133,11 +1219,11 @@ def main() -> int:
         flops = 2.0 * b_ * h_ * n_ * n_ * (d_ + vx.shape[-1])
         bnd = bound_ms(2 * (2 * qx.numel() + 2 * vx.numel()) + 4 * b_ * h_ * n_, flops,
                        float(b_ * h_ * n_ * n_))
-        kernel_ms = time_ms(lambda: attention.flash_attention(qx, kx, vx, scale=1.0), 20)
+        wide_ms = time_ms(lambda: attention.flash_attention(qx, kx, vx, scale=1.0), 20)
         print(f"B1 widened, {label}: q/k {tuple(qx.shape)}, v {tuple(vx.shape)}: max_abs_err "
               f"{(ox.float() - po.float()).abs().max().item():.3e}; errors relative to |o| "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f"; kernel_ms {kernel_ms:.4f} ({flops / kernel_ms / 1e9:.1f} TFLOP/s)"
+              + f"; kernel_ms {wide_ms:.4f} ({flops / wide_ms / 1e9:.1f} TFLOP/s)"
               f" plain_ms {time_ms(lambda: attention.flash_attention_plain(qx, kx, vx, 1.0), 3):.4f}"
               f" bound_ms {bnd[0]:.4f} ({bnd[1]})")
         require(attention.within(errs, attention.FLASH_BOUNDS), f"B1 widened, {label}: disagrees")

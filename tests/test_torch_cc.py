@@ -4,7 +4,9 @@ morphology / size filter and cv2-parity filters against their JAX twins.
 Also the arithmetic of the resident-tile kernel of connected components and
 min-propagation (`csrc/seg_min.cu`): a pass as two run-min broadcasts, and a
 step-by-step replay of its tiles, chunks and edge summaries, which must fail
-planted faults."""
+planted faults; and the same for the bit-packed flood and hole filling
+(`csrc/flood_bits.cu`): words, chunks, bands, edge lines and the bit-reversed
+row fill."""
 
 import functools
 
@@ -20,6 +22,7 @@ from cellvit_tpu.ops.cc_pallas import (
     compact_root_labels_pallas,
     connected_components_pallas,
     fill_holes_pallas,
+    flood_pallas,
     propagate_min_pallas,
 )
 from cellvit_tpu_torch.ops import cc, cc_cuda, filters
@@ -290,6 +293,208 @@ def test_emulated_tiled_runs_fail_planted_faults(rng, fault):
             caught.append(bool((bad != want_pm)[~m].any()))
         else:
             caught.append(bool((_emulated_cc(m, n_outer, fault=fault, **kw) != want).any()))
+    assert any(caught), caught
+
+
+U32 = np.uint32
+ALL = U32(0xFFFFFFFF)
+_LANE = np.arange(32, dtype=np.uint64)
+
+
+def _brev(x):
+    """`__brev` on uint32 arrays."""
+    x = x.astype(U32)
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
+        x = ((x >> U32(shift)) & U32(mask)) | ((x & U32(mask)) << U32(shift))
+    return (x >> U32(16)) | (x << U32(16))
+
+
+def _fill_up(g, o):
+    """`flood_bits.cu`'s fill_up: bits of o reached from g ⊆ o towards higher
+    bit index, by one (wrapping) addition."""
+    with np.errstate(over="ignore"):
+        return (o & ((o + g) ^ o)) | g
+
+
+def _pack_rows(m, n_words):
+    """(B, H, W) bool → (B, H, n_words) uint32 words along the rows, bit i of
+    word j = column 32j + i; columns past W are 0."""
+    b, h, w = m.shape
+    p = np.zeros((b, h, 32 * n_words), bool)
+    p[..., :w] = m
+    return (p.reshape(b, h, n_words, 32).astype(np.uint64) << _LANE).sum(-1).astype(U32)
+
+
+def _ballot(bits):
+    """(…, 32) lane bits → (…) uint32 masks."""
+    return (bits.astype(np.uint64) << _LANE).sum(-1).astype(U32)
+
+
+def _emulated_row_pass(x, o, fault):
+    """Run-OR broadcast along the rows of (…, NWL, 32 lanes) words (word
+    32q + l of a row at [q, l]): each stretch of 32 words in turn, the
+    words' carries by two ballots and a fill of the lane bits, the carry into
+    the stretch through lane 31 of the one before; then the same on
+    bit-reversed words for the other direction. "word_carry_dropped": no
+    carry crosses a word boundary."""
+    nwl = x.shape[-2]
+    lane = np.arange(32, dtype=U32)
+    one = U32(1)
+    x = x.copy()
+    for reverse in (False, True):
+        if reverse:  # bit-reversed words in reversed order along the row
+            x, o = _brev(x[..., ::-1, ::-1]), _brev(o[..., ::-1, ::-1])
+        seg = np.zeros(x.shape[:-2], U32)
+        for q in range(nwl):
+            tm = _ballot(_fill_up(x[..., q, :], o[..., q, :]) >> U32(31))
+            fm = _ballot(o[..., q, :] == ALL)
+            out = _fill_up(tm | (seg & fm & one), fm | tm)
+            c = np.where(lane > 0, (out[..., None] >> np.maximum(lane, 1) - one) & one, seg[..., None])
+            if fault == "word_carry_dropped":
+                c = np.zeros_like(c)
+            x[..., q, :] = _fill_up(x[..., q, :] | (c & o[..., q, :] & one), o[..., q, :])
+            seg = out >> U32(31)
+        if reverse:
+            x, o = _brev(x[..., ::-1, ::-1]), _brev(o[..., ::-1, ::-1])
+    return x
+
+
+def _walk(x, o, run, order, fault):
+    """Walk rows `order` of (…, RC, words): run ← x | (o & run), in place."""
+    for i in order:
+        run = x[..., i, :] | (run if fault == "no_remask" else o[..., i, :] & run)
+        x[..., i, :] = run
+    return run
+
+
+def _fold_words(pairs, reverse=False):
+    """Exclusive and inclusive folds of (all-open, run value) summaries along
+    axis -2: a carry crosses a span only if all of it is open."""
+    f, t = pairs
+    n = f.shape[-2]
+    order = range(n - 1, -1, -1) if reverse else range(n)
+    ex_f, ex_t = np.empty_like(f), np.empty_like(t)
+    acc_f, acc_t = np.full(f.shape[:-2] + f.shape[-1:], ALL), np.zeros(t.shape[:-2] + t.shape[-1:], U32)
+    for k in order:
+        ex_f[..., k, :], ex_t[..., k, :] = acc_f, acc_t
+        acc_t = t[..., k, :] | (f[..., k, :] & acc_t)
+        acc_f = acc_f & f[..., k, :]
+    return ex_f, ex_t, acc_f, acc_t
+
+
+def _emulated_flood_bits(seed, open_, n_outer, bands=8, chunks=32, fault=None):
+    """Replay of `flood_bits.cu` on (B, H, W) bool seed and open mask: words
+    of 32 pixels along the rows (closed past W, or open with the fault
+    "open_padding"), lane l of a warp holding words l and l + 32 (NWL ≤ 2)
+    of each of its rows, `chunks` warps of RC rows a band,
+    `bands` blocks a cluster, RC the least power of 2 that covers H; a pass
+    is a column phase (chunk summaries; the chunks' folds within a band; the
+    bands' folds, dropped by the fault "band_edge_dropped"; the chunks walked
+    with their carries) and a row phase. "no_remask": the walks ignore the
+    mask; "word_carry_dropped": see `_emulated_row_pass`."""
+    b, h, w = seed.shape
+    ww = -(-w // 32)
+    nwl = 1 if ww <= 32 else 2
+    rc = 1
+    while chunks * rc * bands < h:
+        rc *= 2
+    hp = bands * chunks * rc
+    o = np.zeros((b, hp, 32 * nwl), U32)
+    o[:, :h] = _pack_rows(open_, 32 * nwl)
+    if fault == "open_padding" and w % 32:
+        o[:, :h, ww - 1] |= ALL << U32(w % 32)
+    x = np.zeros_like(o)
+    x[:, :h] = _pack_rows(seed, 32 * nwl) & o[:, :h]
+    shape = (b, bands, chunks, rc, 32 * nwl)
+    x, o = x.reshape(shape), o.reshape(shape)
+    for _ in range(n_outer):
+        t = _walk(x.copy(), o, np.zeros(shape[:3] + shape[4:], U32), range(rc), fault)
+        hd = _walk(x.copy(), o, np.zeros_like(t), range(rc - 1, -1, -1), fault)
+        f = np.bitwise_and.reduce(o, axis=3)
+        pa, pt, band_f, band_t = _fold_words((f, t))
+        qa, qh, _, band_h = _fold_words((f, hd), reverse=True)
+        _, cin, _, _ = _fold_words((band_f, band_t))
+        _, cout, _, _ = _fold_words((band_f, band_h), reverse=True)
+        if fault == "band_edge_dropped":
+            cin, cout = np.zeros_like(cin), np.zeros_like(cout)
+        _walk(x, o, pt | (pa & cin[:, :, None]), range(rc), fault)
+        _walk(x, o, qh | (qa & cout[:, :, None]), range(rc - 1, -1, -1), fault)
+        rows = x.reshape(b, hp, nwl, 32)
+        x = _emulated_row_pass(rows, o.reshape(b, hp, nwl, 32), fault).reshape(shape)
+    bits = (x.reshape(b, hp, 32 * nwl, 1) >> _LANE.astype(U32)) & U32(1)
+    return bits.reshape(b, hp, -1)[:, :h, :w].astype(bool)
+
+
+def _border(mask):
+    border = np.zeros(mask.shape, bool)
+    border[:, [0, -1], :] = border[:, :, [0, -1]] = True
+    return border & ~mask
+
+
+def _flood_masks(w, h=200, seed=0):
+    """Masks 45% closed (the background's clusters are finite and winding),
+    with a ring and bars across bands and words; and interior seeds."""
+    rng = np.random.default_rng(seed + w)
+    m = rng.random((2, h, w)) < 0.45
+    m[0, 20:180, 10:14] = m[0, 20:180, w - 14:w - 10] = True   # a ring across bands and words
+    m[0, 20:24, 10:w - 10] = m[0, 176:180, 10:w - 10] = True
+    m[1, :, w // 2] = False                                      # an open column and row
+    m[1, h // 3, :] = False
+    seeds = rng.random((2, h, w)) < 0.002
+    return m, seeds
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_flood_cases(w, n_outer):
+    m, seeds = _flood_masks(w)
+    fill = np.asarray(fill_holes_pallas(jnp.asarray(m), n_outer=n_outer, interpret=True))
+    reach = np.asarray(flood_pallas(jnp.asarray(seeds), jnp.asarray(~m), n_outer=n_outer, interpret=True))
+    return m, seeds, fill, reach
+
+
+@pytest.mark.parametrize("bands", [2, 4, 8])
+@pytest.mark.parametrize("n_outer", [1, 2, 3, 4])
+@pytest.mark.parametrize("w", [1024, 1030, 33])
+def test_emulated_flood_bits_match_plain_and_pallas(w, n_outer, bands):
+    """The replay of `flood_bits.cu` on 200-row images (ragged last bands at
+    every cluster width; one word a lane at widths 1024 and 33, two at 1030,
+    whose last word holds 6 columns) equals the plain versions and the Pallas
+    kernels exactly: hole filling (seed: the border's background) and the
+    flood of interior seeds."""
+    m, seeds, want_fill, want_reach = _pallas_flood_cases(w, n_outer)
+    fill = ~_emulated_flood_bits(_border(m), ~m, n_outer, bands)
+    np.testing.assert_array_equal(fill, want_fill)
+    np.testing.assert_array_equal(fill, cc_cuda.fill_holes_cuda(torch.from_numpy(m), n_outer).numpy())
+    reach = _emulated_flood_bits(seeds, ~m, n_outer, bands)
+    np.testing.assert_array_equal(reach, want_reach)
+    np.testing.assert_array_equal(
+        reach, cc_cuda.flood_plain(torch.from_numpy(seeds), torch.from_numpy(~m), n_outer).numpy())
+
+
+@pytest.mark.parametrize("fault", ["band_edge_dropped", "word_carry_dropped", "open_padding",
+                                   "no_remask"])
+def test_emulated_flood_bits_fail_planted_faults(fault):
+    """Each planted fault changes the flood, after one pass or three, on a
+    1030-wide image that exercises it: an open column across all eight bands
+    seeded at its top (band carries), an open row across all 33 words seeded
+    at its left end (word carries), two open stretches of the last column,
+    split by a closed pixel, one seeded (padding treated as open joins them
+    through the padding columns), and an open column split by a closed pixel
+    (the walk without the mask crosses it)."""
+    h, w = 200, 1030
+    open_ = np.zeros((1, h, w), bool)
+    seed = np.zeros_like(open_)
+    open_[0, :, 5] = True                  # across the bands
+    open_[0, 10, 20:] = True               # across the words
+    open_[0, :60, w - 1] = open_[0, 70:120, w - 1] = True
+    open_[0, 30:100, 300] = True           # split at row 50
+    open_[0, 50, 300] = False
+    seed[0, 0, 5] = seed[0, 10, 20] = seed[0, 0, w - 1] = seed[0, 30, 300] = True
+    caught = []
+    for n_outer in (1, 3):
+        want = cc_cuda.flood_plain(torch.from_numpy(seed), torch.from_numpy(open_), n_outer).numpy()
+        np.testing.assert_array_equal(_emulated_flood_bits(seed, open_, n_outer), want)
+        caught.append(bool((_emulated_flood_bits(seed, open_, n_outer, fault=fault) != want).any()))
     assert any(caught), caught
 
 

@@ -50,14 +50,17 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
         attention.flash_attention(q, q, q)
 
 
-# the resident-tile kernel of B2/B4 (128 × 256 tiles): the test masks, more
+# the resident-tile kernel of B2/B4 (128 × 256 tiles) and the bit-packed
+# cluster kernel of B3 (flood and hole filling): the test masks, more
 # passes, a 9-image batch of 1024² (more than one wave of images), ragged
-# shapes that no tile divides, a single row and column, its 1400² reach, and
-# an all-open image (one run across every tile) and an all-closed one
+# shapes that no tile divides, widths that are no multiple of 32, a single
+# row and column, 1400², and an all-open image (one run across every tile)
+# and an all-closed one
 @pytest.mark.parametrize("b,h,w,n_outer,fill", [
     (2, 96, 160, 1, None), (2, 96, 160, 3, None), (2, 96, 160, 4, None), (9, 1024, 1024, 3, None),
     (1, 1000, 1030, 3, None), (2, 224, 256, 3, None), (2, 1, 700, 3, None), (2, 700, 1, 3, None),
     (1, 1400, 1400, 3, None), (2, 300, 520, 3, True), (2, 300, 520, 3, False),
+    (3, 77, 33, 2, None), (2, 130, 95, 4, None), (9, 1024, 1024, 2, None),
 ])
 def test_scan_kernels_match_plain(cuda, b, h, w, n_outer, fill):
     fg = _masks(n_outer + h + w, b, h, w).to(cuda)
@@ -68,8 +71,13 @@ def test_scan_kernels_match_plain(cuda, b, h, w, n_outer, fill):
     assert _build.LAUNCHES["connected_components"] == before["connected_components"] + 1
     assert torch.equal(lab, cc_cuda.connected_components_plain(fg, n_outer))
     seed, open_ = cc_cuda.border_seed(fg), ~fg
-    assert torch.equal(cc_cuda.flood_cuda(seed, open_, n_outer),
-                       cc_cuda.flood_plain(seed, open_, n_outer))
+    interior = torch.rand(fg.shape, generator=torch.Generator(device=cuda).manual_seed(w), device=cuda) < 0.01
+    for s in (seed, interior):
+        got = cc_cuda.flood_cuda(s, open_, n_outer)
+        assert got.dtype == torch.bool and torch.equal(got, cc_cuda.flood_plain(s, open_, n_outer))
+    filled = cc_cuda.fill_holes_cuda(fg, n_outer)
+    assert torch.equal(filled, fg | (open_ & ~cc_cuda.flood_plain(seed, open_, n_outer)))
+    assert _build.LAUNCHES["flood"] == before["flood"] + 3  # one launch a call
     rank = torch.arange(fg[0].numel(), device=cuda, dtype=torch.int32).reshape(fg.shape[1:])
     g = torch.Generator(device=cuda).manual_seed(h + w)
     wide = torch.randint(-2**31, 2**31 - 1, fg.shape, generator=g, device=cuda, dtype=torch.int32)
@@ -83,14 +91,37 @@ def test_scan_kernels_match_plain(cuda, b, h, w, n_outer, fill):
                        cc_cuda.compact_root_labels_cuda(lab.cpu(), n_outer).to(cuda))
 
 
-@pytest.mark.parametrize("h,w", [(1537, 64), (64, 2049)])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 2048, 2048), (2, 2048, 100), (2, 64, 2048), (2, 20, 2048), (3, 60, 1030), (2, 100, 513),
+    (2, 1400, 1400),
+])
+def test_flood_kernel_at_its_limits_and_cluster_widths(cuda, b, h, w):
+    """B3 at the edges of `FLOOD_MAX_HW` (beyond B2/B4's reach) and on the
+    cluster widths short images take (1, 2 and 4 blocks an image; 8 from
+    129 rows on), against the plain flood."""
+    fg = _masks(h + w, b, h, w).to(cuda)
+    seed, open_ = cc_cuda.border_seed(fg), ~fg
+    assert cc_cuda.flood_cluster(h, w) == min(8, 1 << max(0, (-(-h // 32) - 1).bit_length()))
+    for n_outer in (1, 2):
+        want = cc_cuda.flood_plain(seed, open_, n_outer)
+        assert torch.equal(cc_cuda.flood_cuda(seed, open_, n_outer), want)
+        assert torch.equal(cc_cuda.fill_holes_cuda(fg, n_outer), fg | (open_ & ~want))
+
+
+@pytest.mark.parametrize("h,w", [(1537, 64), (64, 2049), (2049, 64)])
 def test_scan_kernels_refuse_beyond_their_limit(cuda, h, w):
     fg = torch.ones((1, h, w), dtype=torch.bool, device=cuda)
-    limit = str(cc_cuda.RESIDENT_MAX_HW[0] if h > w else cc_cuda.RESIDENT_MAX_HW[1])
-    with pytest.raises(ValueError, match=limit):
-        cc_cuda.connected_components_cuda(fg)
-    with pytest.raises(ValueError, match=limit):
-        cc_cuda.propagate_min_cuda(torch.zeros_like(fg, dtype=torch.int32), fg)
+    calls = (
+        (cc_cuda.RESIDENT_MAX_HW, (lambda: cc_cuda.connected_components_cuda(fg),
+                                   lambda: cc_cuda.propagate_min_cuda(torch.zeros_like(fg, dtype=torch.int32), fg))),
+        (cc_cuda.FLOOD_MAX_HW, (lambda: cc_cuda.flood_cuda(fg, fg), lambda: cc_cuda.fill_holes_cuda(fg))),
+    )
+    for (max_h, max_w), fns in calls:
+        if h <= max_h and w <= max_w:
+            continue
+        for fn in fns:
+            with pytest.raises(ValueError, match=str(max_h if h > max_h else max_w)):
+                fn()
 
 
 def _bf16(g, shape, device, std=1.0):
@@ -207,6 +238,27 @@ def test_window_kernel_matches_plain(cuda, grid_hw, d):
     assert _build.LAUNCHES["window_attention"] == before + 1
     errs = attention.attn_errors(o, ref)
     assert attention.within(errs, attention.WINDOW_BOUNDS), errs
+
+
+@pytest.mark.parametrize("dqk", [96, 110, 112, 288])
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("n", [1, 17, 196, 224, 256])
+def test_window_kernel_widths_match_plain(cuda, n, d, dqk):
+    """B7 on q′/k′ strided out of one buffer (rows padded to 8 elements, or,
+    at 110, unpadded: the wrapper copies them into 16-byte rows) and v out of
+    a qkv buffer."""
+    g = torch.Generator(device=cuda).manual_seed(n + d + dqk)
+    width = dqk if dqk % 8 else dqk + 8
+    qk = _bf16(g, (2, n, 2, 3, width), cuda, dqk**-0.25)
+    q, k = qk[..., :dqk].unbind(2)
+    v = _bf16(g, (2, n, 3, 3, d), cuda)[:, :, 1]
+    ref = attention.window_attention_plain(q, k, v)
+    before = _build.LAUNCHES["window_attention"]
+    o = attention.window_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["window_attention"] == before + 1
+    errs = attention.attn_errors(o, ref)
+    assert o.shape == (2, n, 3, d) and attention.within(errs, attention.WINDOW_BOUNDS), errs
 
 
 def test_ragged_relpos_grid_takes_the_wide_flash_kernel(cuda):

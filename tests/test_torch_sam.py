@@ -443,16 +443,32 @@ def _emulated_relpos_tiled(q, k, v, bh, bw, fault, tile=128):
     return _bf(acc / l).transpose(1, 2)
 
 
-def _emulated_window(q, k, v, fault):
-    """B7's arithmetic on 64-key tiles: the keys past N in the last tile are
-    zero-filled and masked, unless the fault leaves them in (zero logits)."""
-    logits = q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)
-    vh = v.float().transpose(1, 2)
-    if fault == "unmasked_padded_keys":
-        pad = -logits.shape[-1] % 64
-        logits = torch.nn.functional.pad(logits, (0, pad))
-        vh = torch.nn.functional.pad(vh, (0, 0, 0, pad))
-    return _bf(_softmax_bf16_p(logits, vh)).transpose(1, 2)
+def _emulated_window(q, k, v, fault, tile=128):
+    """B7's arithmetic as its Hopper kernel plays it: q′ and k′ with their
+    columns zero-padded to the 16-deep steps of the products (random pad
+    columns with the fault "nonzero_pad_columns"), the keys in 128-key tiles
+    zero-filled past N, fp32 logits of the whole row at once, the keys past N
+    masked (left in, with zero logits, by "unmasked_padded_keys" and
+    "keys_past_n_unmasked"), a single-pass softmax in base 2 with the fp32
+    row sum, p rounded to bf16 before P·V, o rounded once; "head_offset"
+    writes each head's output one head over."""
+    b, n, h, dqk = q.shape
+    pad = -dqk % 16
+    fill = torch.zeros if fault != "nonzero_pad_columns" else (
+        lambda shape: torch.randn(shape, generator=torch.Generator().manual_seed(5)))
+    qp, kp = (torch.cat([t.float(), fill((b, n, h, pad))], -1) for t in (q, k))
+    keys = -(-n // tile) * tile
+    kp = torch.nn.functional.pad(kp, (0, 0, 0, 0, 0, keys - n))
+    vh = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, keys - n)).transpose(1, 2)
+    s = qp.transpose(1, 2) @ kp.permute(0, 2, 3, 1)  # (B, H, N, keys)
+    if fault not in ("unmasked_padded_keys", "keys_past_n_unmasked"):
+        s = s.masked_fill(torch.arange(keys) >= n, -np.inf)
+    log2e = 1.4426950408889634
+    p = torch.exp2(s * log2e - s.amax(-1, keepdim=True) * log2e)
+    o = _bf((_bf(p) @ vh) / p.sum(-1, keepdim=True))
+    if fault == "head_offset":
+        o = o.roll(1, dims=1)
+    return o.transpose(1, 2)
 
 
 def _sam_inputs(seed, side_grid=20, window=14, c=320, nh=4):
@@ -480,6 +496,7 @@ def _sam_inputs(seed, side_grid=20, window=14, c=320, nh=4):
     ("relpos_tiled", "none"), ("relpos_tiled", "bw_register_one_thread_off"),
     ("relpos_tiled", "bh_row_one_tile_ahead"),
     ("window", "none"), ("window", "unmasked_padded_keys"),
+    ("window", "keys_past_n_unmasked"), ("window", "nonzero_pad_columns"), ("window", "head_offset"),
 ])
 def test_sam_bounds_separate_rounding_from_kernel_faults(kernel, fault):
     """Each SAM kernel's arithmetic, played on the CPU with its bf16
