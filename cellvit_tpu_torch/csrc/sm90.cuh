@@ -54,6 +54,11 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
+// Add `bytes` to the transactions the current phase awaits, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -155,6 +160,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
+}
+
+// The same from a 4-D map at (column, dimension 1, dimension 2, dimension 3).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {

@@ -19,11 +19,14 @@ each image's int32 state resident in the shared memory of a group of
 blocks; the flood and hole filling run `csrc/flood_bits.cu`, with each
 image's state and mask packed one bit a pixel in the registers of a
 thread-block cluster. Every exact schedule gives the same bits, so kernels
-and plain versions agree exactly.
+and plain versions agree exactly. The sweep watershed runs every pass of a
+call in one launch of `csrc/watershed.cu` (bit-packed frontier, tiles with
+halos, a counter barrier among an image's tiles).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable
 
 import torch
@@ -35,7 +38,8 @@ INT_MAX = torch.iinfo(torch.int32).max
 #: runs across at most 12 tiles down a column and 8 along a row
 RESIDENT_TILE = (128, 256)
 RESIDENT_MAX_HW = (12 * 128, 8 * 256)
-#: its barrier words, two per group of one image's tiles (512 groups)
+#: the barrier words of `seg_min.cu` and `watershed.cu`, two per group of
+#: one image's tiles (512 groups)
 _SYNC_WORDS = 2 * 512
 #: `csrc/flood_bits.cu` (B3) holds an image in the registers of a cluster
 #: of at most 8 blocks of 32 warps, a warp's thread at most 16 words of 32
@@ -45,6 +49,10 @@ FLOOD_MAX_HW = (2048, 2048)
 #: its blocks an image (a cluster): 8, the portable maximum, took less time
 #: than 2 or 4 (`scripts/flood_bits_variants.py`)
 FLOOD_CLUSTER = 8
+
+#: `csrc/watershed.cu` (B9) keeps quantized heights in a byte up to 256
+#: levels and in 16 bits up to this many
+WATERSHED_MAX_LEVELS = 65535
 
 Op = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -124,19 +132,27 @@ def _check_mask(name: str, t: torch.Tensor, max_hw) -> torch.Tensor:
 _sync: dict = {}
 
 
+def _sync_words(t: torch.Tensor):
+    """The barrier words of the kernels with a counter barrier among blocks
+    (`csrc/seg_min.cu`, `csrc/watershed.cu`), which each call leaves at 0:
+    one zeroed buffer per device and stream, made at first use and shared,
+    since calls on one stream run one after another. Returns (sync words,
+    stream)."""
+    stream = _build.stream_of(t)
+    sync = _sync.get((t.device, stream))
+    if sync is None:
+        sync = _sync[(t.device, stream)] = torch.zeros(_SYNC_WORDS, dtype=torch.int32, device=t.device)
+    return sync, stream
+
+
 def _resident_scratch(fg: torch.Tensor):
     """`csrc/seg_min.cu`'s workspace (per image, one int4 summary per line
-    and tile, both axes; uninitialised) and its barrier words, which each
-    call leaves at 0: one zeroed buffer per device and stream, made at first
-    use. Returns (workspace, sync words, stream)."""
+    and tile, both axes; uninitialised) and its barrier words. Returns
+    (workspace, sync words, stream)."""
     b, h, w = fg.shape
     ty, tx = -(-h // RESIDENT_TILE[0]), -(-w // RESIDENT_TILE[1])
     ws = torch.empty(b * (w * ty + h * tx) * 4, dtype=torch.int32, device=fg.device)
-    stream = _build.stream_of(fg)
-    sync = _sync.get((fg.device, stream))
-    if sync is None:
-        sync = _sync[(fg.device, stream)] = torch.zeros(_SYNC_WORDS, dtype=torch.int32, device=fg.device)
-    return ws, sync, stream
+    return (ws, *_sync_words(fg))
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -367,7 +383,12 @@ def watershed_cuda(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tenso
     adoption passes, then stabilization until a pass changes nothing or
     `max_final_iters` passes, per image. The cap of 512 is the JAX package's
     default; the main path's frontier flood caps at 4096. Returns int32
-    labels, and with `return_passes` the (B,) stabilization pass counts."""
+    labels, and with `return_passes` the (B,) stabilization pass counts.
+
+    On CUDA the relief is quantized by `watershed.quantize` (torch ops) and
+    every pass runs in one launch of `csrc/watershed.cu`, which keeps the
+    heights in a byte up to 256 levels and in 16 bits up to
+    `WATERSHED_MAX_LEVELS`."""
     from cellvit_tpu_torch.ops import watershed as ws
 
     if max_final_iters < 1:
@@ -378,19 +399,27 @@ def watershed_cuda(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tenso
     if image.dim() != 3 or markers.shape != image.shape or mask.shape != image.shape:
         raise ValueError(f"image {tuple(image.shape)}, markers {tuple(markers.shape)} and mask "
                          f"{tuple(mask.shape)} must be one (B, H, W) shape")
+    if not 1 <= levels <= WATERSHED_MAX_LEVELS:
+        raise ValueError(f"levels {levels}: the watershed kernel keeps heights in 16 bits and takes "
+                         f"1 … {WATERSHED_MAX_LEVELS} levels")
+    if inner_iters < 0:
+        raise ValueError(f"inner_iters must be ≥ 0; got {inner_iters}")
     mask = mask.to(torch.bool).contiguous()
     q = ws.quantize(image, mask, levels).contiguous()
     markers = markers.to(torch.int32).contiguous()
     b, h, w = image.shape
-    buf0, buf1 = (torch.empty((b, h, w), dtype=torch.int32, device=image.device) for _ in range(2))
-    flags = torch.empty(b * max_final_iters + b, dtype=torch.int32, device=image.device)
+    lib = _build.load("watershed.cu")
+    size = lib.watershed_workspace_words
+    size.argtypes, size.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    work = torch.empty(size(b, h, w, levels, max_final_iters), dtype=torch.int32, device=image.device)
+    lab = torch.empty((b, h, w), dtype=torch.int32, device=image.device)
     passes = torch.empty(b, dtype=torch.int32, device=image.device)
+    sync, stream = _sync_words(image)
     fn = _build.bind("watershed.cu", "watershed_sweep", "pppppppiiiiii")
     _build.LAUNCHES["watershed"] += 1
     _build.check(
-        fn(q.data_ptr(), mask.data_ptr(), markers.data_ptr(), buf0.data_ptr(), buf1.data_ptr(),
-           flags.data_ptr(), passes.data_ptr(), b, h, w, levels, inner_iters, max_final_iters,
-           _build.stream_of(image)),
+        fn(q.data_ptr(), mask.data_ptr(), markers.data_ptr(), lab.data_ptr(), work.data_ptr(),
+           sync.data_ptr(), passes.data_ptr(), b, h, w, levels, inner_iters, max_final_iters, stream),
         "watershed_sweep",
     )
-    return (buf0, passes) if return_passes else buf0
+    return (lab, passes) if return_passes else lab

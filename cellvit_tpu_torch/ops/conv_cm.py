@@ -4,7 +4,7 @@
 Channel-major (B, C, H, W) is torch's own NCHW, so the layout helpers are
 plain permutes. `conv3x3_cm` takes the JAX package's HWIO (3, 3, C, F)
 weights, so one numpy array feeds both packages. On a CUDA tensor it runs
-the kernel of `csrc/conv3x3_cm.cu` (bf16 on the tensor cores, fp32 as a
+the kernel of `csrc/conv3x3_cm.cu` (bf16 on wgmma with TMA loads, fp32 as a
 plain FFMA loop); on a CPU tensor its plain version `conv3x3_cm_reference`.
 """
 
@@ -27,9 +27,11 @@ from cellvit_tpu_torch import _build
 #: wrong tap or channel order gives errors of order 1.
 CONV_BF16_L2 = 2**-8
 
-#: output channels per block of each kernel: the packed weights' F padding
-_F_TILE = {torch.bfloat16: 64, torch.float32: 32}
-_KC = 16  # input channels per chunk of the kernels
+#: output channels per block of the fp32 kernel: its packed weights' F padding
+_F_TILE_F32 = 32
+_KC = 16  # input channels per chunk of the fp32 kernel
+#: the bf16 kernel's weight tiles: 64 output × 64 input channels
+_TILE = 64
 
 
 def nhwc_to_cm(x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +91,18 @@ def pack_kernel_chunks(w: torch.Tensor, dtype: torch.dtype, f_tile: int) -> torc
     return wk.reshape(cp // _KC, _KC, 9, fp).permute(0, 2, 3, 1).contiguous()
 
 
+def pack_kernel_tiles(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, C, F) → the bf16 kernel's (⌈F/64⌉, 9, ⌈C/64⌉, 64, 64)
+    weights: per tile of 64 output channels, per tap 3·dy + dx, per chunk
+    of 64 input channels, a 64 × 64 tile with the output channel as its row
+    and the input channels contiguous; zeros past C and past F."""
+    _, _, c, f = w.shape
+    n_ch, n_f = -(-c // _TILE), -(-f // _TILE)
+    wk = torch.zeros((9, n_ch * _TILE, n_f * _TILE), dtype=torch.bfloat16, device=w.device)
+    wk[:, :c, :f] = w.to(torch.bfloat16).reshape(9, c, f)
+    return wk.reshape(9, n_ch, _TILE, n_f, _TILE).permute(3, 0, 1, 4, 2).contiguous()
+
+
 def conv3x3_cm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, rows: int = 8,
                relu: bool = False, res: Optional[torch.Tensor] = None,
                res_block: int = 0) -> torch.Tensor:
@@ -117,23 +131,26 @@ def conv3x3_cm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = Non
         return conv3x3_cm_reference(x, w, b, relu, res, res_block)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _F_TILE:
+    if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv3x3_cm takes fp32 or bf16 on CUDA; x is {x.dtype}")
     if res is not None and res.dtype != x.dtype:
         raise TypeError(f"res must be {x.dtype}, as x; got {res.dtype}")
     x = x.contiguous()
-    wk = pack_kernel_chunks(w, x.dtype, _F_TILE[x.dtype])
     bias = None if b is None else b.to(torch.float32).contiguous()
     res = None if res is None else res.contiguous()
     out = torch.empty((bsz, f, h, wd), dtype=x.dtype, device=x.device)
     if x.dtype == torch.bfloat16:
+        wk = pack_kernel_tiles(w)
+        f_pad = wk.shape[0] * _TILE
         name, fn = "conv3x3_cm_bf16", _build.bind("conv3x3_cm.cu", "conv3x3_cm_bf16", "pppppiiiiiiiii")
     else:
+        wk = pack_kernel_chunks(w, x.dtype, _F_TILE_F32)
+        f_pad = wk.shape[2]
         name, fn = "conv3x3_cm_f32", _build.bind("conv3x3_cm.cu", "conv3x3_cm_f32", "pppppiiiiiiiii")
     _build.LAUNCHES["conv3x3_cm"] += 1
     _build.check(
         fn(x.data_ptr(), wk.data_ptr(), 0 if bias is None else bias.data_ptr(),
-           0 if res is None else res.data_ptr(), out.data_ptr(), bsz, c, h, wd, f, wk.shape[2],
+           0 if res is None else res.data_ptr(), out.data_ptr(), bsz, c, h, wd, f, f_pad,
            0 if res is None else res.shape[1], res_block, int(relu), _build.stream_of(x)),
         name,
     )

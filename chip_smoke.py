@@ -70,7 +70,12 @@
    watershed B9 on the batch's relief, markers and blob mask and on
    point-seeded floods of the blob discs, each also against 4096
    stabilization passes (ROADMAP C1); the channel-major conv B12 on the
-   input of the type tower's 64→64 3×3 conv with its folded weights.
+   input of the type tower's 64→64 3×3 conv with its folded weights. B9
+   and B12 also print their kernel ms (launches queued back to back), host
+   µs and device kernels a call, B9's quantization apart, B12's TFLOP/s and
+   its fp32 instantiation at the same shape; the build prints the spills of
+   both sources and checks the SASS of every bf16 B12 instantiation for
+   HGMMA.
 7. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
@@ -467,9 +472,10 @@ def kernel_name(entry: str) -> str:
         j = i + len(m.group())
         name = entry[j:j + int(m.group())]
         if name.endswith("kernel"):
-            args = re.match(r"I((?:L[ib]n?\d+E)*)E", entry[j + len(name):])
-            vals = re.findall(r"L[ib](n?\d+)E", args.group(1)) if args else []
-            return name + (f"<{', '.join(v.replace('n', '-') for v in vals)}>" if vals else "")
+            args = re.match(r"I((?:L[ib]n?\d+E|[a-z])*)E", entry[j + len(name):])
+            vals = [v.replace("n", "-") if v else t  # integer values; builtin types by their code (h: uint8_t)
+                    for v, t in re.findall(r"L[ib](n?\d+)E|([a-z])", args.group(1))] if args else []
+            return name + (f"<{', '.join(vals)}>" if vals else "")
         i = j + len(name)
     return entry
 
@@ -805,7 +811,7 @@ def watershed_phase(inter: dict, masks: np.ndarray, kernels: dict, phase_launche
     """B9 in two regimes against the plain sweep with the same cap of 512,
     and the cap against 4096 passes (ROADMAP C1)."""
     from cellvit_tpu_torch.ops import cc_cuda
-    from cellvit_tpu_torch.ops.watershed import watershed
+    from cellvit_tpu_torch.ops.watershed import quantize, watershed
 
     dev = inter["dist"].device
     relief, marks = point_seeded_floods(masks, 0)
@@ -831,11 +837,21 @@ def watershed_phase(inter: dict, masks: np.ndarray, kernels: dict, phase_launche
               f"from the 4096-pass result (passes {passes4k.tolist()}); kernel_ms {times[-1]:.4f}")
         require(diff == 0 and torch.equal(passes, ppasses), f"watershed kernel disagrees ({name})")
     args = next(iter(regimes.values()))
+    ws_call = lambda: cc_cuda.watershed_cuda(*args)
+    q_ms = time_ms(lambda: quantize(args[0], args[2], 64), 10)
+    bound = bound_ms(args[0].numel() * (4 + 4 + 1 + 4))
+    kd = dict(ms=kernel_ms(ws_call, 10), bound=bound)
     kernels["watershed"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/watershed.cu",
-        replaces="cellvit_tpu/ops/cc_pallas.py:493", max_abs_err=max(errs), ms=times[0],
+        replaces="cellvit_tpu/ops/cc_pallas.py:493", max_abs_err=max(errs), ms=kd["ms"],
         plain_ms=time_ms(lambda: watershed(*args, max_final_iters=512, schedule="sweep"), 1),
-        library_ms=None, bound=bound_ms(args[0].numel() * (4 + 4 + 1 + 4)))
+        library_ms=None, bound=bound)
+    # the pass-latency floor of this design: 256 + s dependent passes, each at
+    # least a block barrier (`scripts/watershed_variants.py` measures it)
+    scan_times("B9 watershed_cuda on the main path's tensors (the op: quantization by torch ops, then "
+               "the kernel)", kd, ws_call, kernel_ms)
+    print(f"  B9 quantization alone (torch ops, timed apart): {q_ms:.4f} ms; CUDA events around 5 calls "
+          f"(host-paced) {times[0]:.4f} / {times[1]:.4f} ms for the two regimes")
 
 
 @torch.no_grad()
@@ -883,14 +899,27 @@ def conv_phase(infer, imgs: np.ndarray, kernels: dict, phase_launches: dict) -> 
     require(all(v <= conv_cm.CONV_BF16_L2 for v in errs.values()), "conv kernel disagrees")
     n_flops = 2.0 * inp.shape[0] * inp.shape[2] * inp.shape[3] * f * 9 * inp.shape[1]
     res_ms = time_ms(lambda: conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True, res=res, res_block=1), 10)
-    print(f"  with res: kernel_ms {res_ms:.4f}")
+    conv = lambda: conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True)
+    kd = dict(ms=kernel_ms(conv, 10), bound=bound_ms(2 * (inp.numel() + out.numel()), n_flops))
     kernels["conv3x3_cm"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/conv3x3_cm.cu",
-        replaces="cellvit_tpu/ops/conv_cm.py:80", max_abs_err=max_err,
-        ms=time_ms(lambda: conv_cm.conv3x3_cm(inp, w_hwio, b, relu=True), 10),
+        replaces="cellvit_tpu/ops/conv_cm.py:80", max_abs_err=max_err, ms=kd["ms"],
         plain_ms=time_ms(lambda: conv_cm.conv3x3_cm_reference(inp, w_hwio, b, relu=True), 3),
         library_ms=time_ms(lambda: F.relu(F.conv2d(inp, w, b, padding=1)), 10),
-        bound=bound_ms(2 * (inp.numel() + out.numel()), n_flops))
+        bound=kd["bound"])
+    scan_times("B12 conv3x3_cm (the op: weight packing, then the kernel)", kd, conv, kernel_ms)
+    print(f"  B12 {n_flops / kd['ms'] / 1e9:.1f} TFLOP/s; with res: CUDA events {res_ms:.4f} ms; "
+          f"CUDA events {time_ms(conv, 10):.4f} ms; cuDNN conv + bias, ReLU "
+          f"{kernels['conv3x3_cm']['library_ms']:.4f} ms")
+    xf, wf = inp.float(), w_hwio.float()
+    f32_ms = time_ms(lambda: conv_cm.conv3x3_cm(xf, wf, b, relu=True), 3)
+    f32_ref = conv_cm.conv3x3_cm_reference(xf, wf, b, relu=True)
+    f32_rel = rel(conv_cm.conv3x3_cm(xf, wf, b, relu=True), f32_ref)
+    print(f"  B12 fp32 instantiation (FFMA) at the same shape: {f32_ms:.4f} ms, relative L2 vs plain "
+          f"{f32_rel:.3e} (bound 1e-5: the same fp32 products summed in another order)")
+    require(f32_rel <= 1e-5, "the fp32 conv kernel disagrees")
+    del f32_ref
+    del xf, wf
 
 
 def main() -> int:
@@ -925,7 +954,9 @@ def main() -> int:
                                             "turns>; terms <D>"),
                         ("seg_min.cu", "<seed>"),
                         ("flood_bits.cu", "<rows a warp, words a lane, mode (0 flood, 1 fill_holes)>"),
-                        ("win_attn.cu", "<DV, key tiles>")):
+                        ("win_attn.cu", "<DV, key tiles>"),
+                        ("watershed.cu", "<heights: h 8-bit, t 16-bit>"),
+                        ("conv3x3_cm.cu", "<TMA, resident weights>")):
         if src in report:
             spills = ptxas_spills(report[src][1])
             print(f"  {src} spill bytes (stores, loads) per instantiation {params}: "
@@ -934,6 +965,10 @@ def main() -> int:
     hgmma = sass_hgmma("win_attn.cu")
     print(f"  win_attn.cu HGMMA instructions per instantiation <DV, key tiles> (cuobjdump -sass): {hgmma}")
     require(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()), "B7: an instantiation has no HGMMA")
+    hgmma = {k: v for k, v in sass_hgmma("conv3x3_cm.cu").items() if "sm90" in k}
+    print(f"  conv3x3_cm.cu HGMMA instructions per bf16 instantiation <TMA, resident weights> (cuobjdump "
+          f"-sass): {hgmma}")
+    require(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()), "B12: a bf16 instantiation has no HGMMA")
 
     kernels = {}
 

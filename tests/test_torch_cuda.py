@@ -529,3 +529,117 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, c, f, with_res):
     else:
         rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
         assert rel <= conv_cm.CONV_BF16_L2, rel
+
+
+def _flood_inputs(cuda, seed, b, h, w, negative=False):
+    """Discs over a (B, H, W) relief, one marker pixel a disc (ids 1…), as
+    many discs as the area holds about 1 in 400 pixels; with `negative`, a
+    band of negative labels across every image."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((b, h, w), np.float32)
+    mask = np.zeros((b, h, w), bool)
+    mark = np.zeros((b, h, w), np.int32)
+    n = max(1, h * w // 400)
+    for i in range(b):
+        cy, cx = rng.integers(0, h, n), rng.integers(0, w, n)
+        r = rng.integers(2, 14, n)
+        for k in range(n):
+            y0, y1, x0, x1 = max(cy[k] - r[k], 0), min(cy[k] + r[k] + 1, h), max(cx[k] - r[k], 0), min(cx[k] + r[k] + 1, w)
+            yy, xx = np.mgrid[y0:y1, x0:x1]
+            d2 = (yy - cy[k]) ** 2 + (xx - cx[k]) ** 2
+            disc = d2 <= r[k] ** 2
+            mask[i, y0:y1, x0:x1] |= disc
+            img[i, y0:y1, x0:x1] = np.minimum(img[i, y0:y1, x0:x1], np.where(disc, -np.exp(-d2 / r[k] ** 2), 0))
+            mark[i, cy[k], cx[k]] = k + 1
+    if negative:
+        mark[:, h // 3:h // 3 + 3, :] = -2
+    return tuple(torch.from_numpy(a).to(cuda) for a in (img, mark * mask, mask))
+
+
+_WS_CROWDED = ((9, 1024, 1024), (4, 2048, 2048), (2, 2048, 2048), (150, 40, 40))
+
+
+@pytest.mark.parametrize("shape,kw,negative", [
+    ((1, 1, 1), {}, False),
+    ((3, 77, 33), {}, False),
+    ((2, 100, 1030), {}, False),
+    ((1, 2048, 2048), {}, False),
+    ((2, 300, 200), dict(levels=1, inner_iters=2), False),
+    ((2, 300, 200), dict(levels=256), False),
+    ((2, 300, 200), dict(levels=300, inner_iters=1), False),
+    ((2, 300, 200), dict(max_final_iters=1), False),
+    ((2, 300, 200), {}, True),
+    ((9, 256, 256), dict(levels=8, inner_iters=1, max_final_iters=40), True),
+    ((9, 1024, 1024), {}, False),
+    ((4, 2048, 2048), dict(levels=8, inner_iters=1), True),
+    ((2, 2048, 2048), dict(levels=300, inner_iters=1), False),
+    ((150, 40, 40), dict(max_final_iters=13), True),
+])
+def test_watershed_kernel_shapes_match_plain(cuda, shape, kw, negative):
+    """B9, one launch a call, pixel-equal with equal pass counts to the plain
+    sweep on the card: a single pixel, odd shapes, width 1030, 2048², one
+    and 256 levels (byte heights) and 300 (16-bit heights), a cap of one
+    pass, negative markers, and more images than one group of tiles. The
+    last four have more tiles than the card holds blocks (one an SM), so
+    blocks run several tiles of an image in turn, restaging each phase
+    ((9, 1024²), (4, 2048²), (2, 2048²) with 128-row tiles), or a group
+    runs several images in turn ((150, 40²))."""
+    from cellvit_tpu_torch.ops.watershed import watershed
+
+    b, h, w = shape
+    if shape in _WS_CROWDED:  # the premise of these cases
+        th = 128 if kw.get("levels", 64) > 256 else 256
+        tiles = b * -(-h // th) * -(-w // 256)
+        assert tiles > torch.cuda.get_device_properties(cuda).multi_processor_count, tiles
+
+    img, mark, mask = _flood_inputs(cuda, sum(shape), *shape, negative=negative)
+    if shape == (1, 1, 1):
+        mask[:] = True
+        mark[:] = 5
+    before = _build.LAUNCHES["watershed"]
+    got, passes = cc_cuda.watershed_cuda(img, mark, mask, return_passes=True, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["watershed"] == before + 1
+    args = dict(levels=kw.get("levels", 64), inner_iters=kw.get("inner_iters", 4),
+                max_final_iters=kw.get("max_final_iters", 512))
+    want, want_passes = watershed(img, mark, mask, schedule="sweep", return_passes=True, **args)
+    assert torch.equal(got, want)
+    assert torch.equal(passes, want_passes)
+    if negative:
+        assert torch.equal(got[mark < 0], mark[mark < 0])
+
+
+def test_watershed_kernel_refuses_more_than_16_bit_levels(cuda):
+    img, mark, mask = _flood_inputs(cuda, 1, 1, 32, 32)
+    with pytest.raises(ValueError, match="65535"):
+        cc_cuda.watershed_cuda(img, mark, mask, levels=65536)
+
+
+@pytest.mark.parametrize("h,w", [(12, 100), (12, 1030), (12, 1024), (6, 16), (10, 200), (6, 1000),
+                                 (10, 16)])
+@pytest.mark.parametrize("f", [1, 64, 65, 192])
+@pytest.mark.parametrize("c", [3, 64, 72, 192])
+def test_conv3x3_bf16_kernel_shapes_match_plain(cuda, c, f, h, w):
+    """B12 in bf16 within `CONV_BF16_L2` of its plain version with each block
+    of a 3·F-channel residual and without one: input channels past one
+    64-channel chunk and not a multiple of 16, output channels past one
+    64-channel tile, widths that TMA takes (1024; 16, 200 and 1000, whose
+    last 64-pixel tile runs past the image, so the loads are zero-filled and
+    the stores clipped there) and that it does not (100, 1030: rows not
+    16-byte aligned), and heights that are not a multiple of the kernel's
+    4-row item (6, 10; the op's `rows`, the JAX kernel's contract H % rows
+    == 0, is then 2: the CUDA tiling does not depend on it)."""
+    g = torch.Generator(device=cuda).manual_seed(c * f + h * w)
+    x = torch.randn((2, c, h, w), generator=g, device=cuda).to(torch.bfloat16)
+    wt = (torch.randn((3, 3, c, f), generator=g, device=cuda) * c**-0.5).to(torch.bfloat16)
+    b = torch.randn(f, generator=g, device=cuda)
+    res = torch.randn((2, 3 * f, h, w), generator=g, device=cuda).to(torch.bfloat16)
+    for block in (None, 0, 1, 2):
+        kw = {} if block is None else dict(res=res, res_block=block)
+        before = _build.LAUNCHES["conv3x3_cm"]
+        got = conv_cm.conv3x3_cm(x, wt, b, rows=4 if h % 4 == 0 else 2, relu=block != 1, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["conv3x3_cm"] == before + 1
+        want = conv_cm.conv3x3_cm_reference(x, wt, b, relu=block != 1, **kw)
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert got.shape == want.shape and rel <= conv_cm.CONV_BF16_L2, (block, rel)
