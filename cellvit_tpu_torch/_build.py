@@ -44,6 +44,7 @@ LAUNCHES: Dict[str, int] = {
     "window_attention": 0,
     "watershed": 0,
     "remove_small_objects": 0,
+    "radix_filter": 0,
     "radix_hist": 0,
     "rm_mapback": 0,
     "conv3x3_cm": 0,

@@ -280,9 +280,12 @@ def fill_holes_cuda(mask: torch.Tensor, n_outer: int = 2) -> torch.Tensor:
 # `watershed_pallas`; their plain versions live in `ops/cc.py` and
 # `ops/watershed.py`, which import this module)
 
-#: B10 stages a (32 + 2·(min_size − 1))² int32 tile in one block's 227 KB
+#: B10 stages a tile with its halo of min_size − 1 rows (and as many
+#: columns, rounded up to 4) as one TMA box in a block's 227 KB: at 105 a
+#: 16 × 32 tile's 224 × 240 int32
 RM_SMALL_MAX_MIN_SIZE = 105
-#: B11 keeps an int32 count per radix bin in one block's 227 KB; the fp32
+#: B11 keeps an int32 count per radix bin in the shared memory of each block
+#: of an image's cluster (227 KB, less its slice of bit words); the fp32
 #: counts are exact below 2²⁴ pixels an image
 MAX_RADIX_BINS = 56 * 1024
 MAX_HIST_PIXELS = 2**24
@@ -296,7 +299,8 @@ def _check_labels(name: str, t: torch.Tensor) -> torch.Tensor:
 
 def remove_small_objects_cuda(labels: torch.Tensor, min_size: int) -> torch.Tensor:
     """Zero the components of fewer than `min_size` pixels by the windowed
-    same-label count (kernel B10 on CUDA; `cc.remove_small_objects_window`
+    same-label count (kernel B10 on CUDA: a persistent grid over tiles whose
+    boxes arrive by TMA, `csrc/rm_small.cu`; `cc.remove_small_objects_window`
     on the CPU). `min_size` ≤ 1 returns `labels` as they are."""
     from cellvit_tpu_torch.ops import cc
 
@@ -322,18 +326,24 @@ def _check_bins(hi_bins: int, lo_bins: int) -> None:
         raise ValueError(f"{hi_bins} × {lo_bins} radix bins: the kernels take 1 … {MAX_RADIX_BINS}")
 
 
+def _check_radix(labels: torch.Tensor, hi_bins: int, lo_bins: int) -> torch.Tensor:
+    _check_bins(hi_bins, lo_bins)
+    labels = _check_labels("labels", labels)
+    h, w = labels.shape[1:]
+    if h * w > MAX_HIST_PIXELS:
+        raise ValueError(f"{h}×{w} pixels: fp32 counts are exact below {MAX_HIST_PIXELS}")
+    return labels
+
+
 def radix_histogram_cuda(labels: torch.Tensor, hi_bins: int = 64, lo_bins: int = 128) -> torch.Tensor:
     """(B, H, W) ids → (B, hi_bins, lo_bins) fp32 pixel counts per radix bin
-    (kernel B11a on CUDA; `cc.radix_histogram` on the CPU)."""
+    (kernel B11's histogram entry on CUDA; `cc.radix_histogram` on the CPU)."""
     from cellvit_tpu_torch.ops import cc
 
     if _device_kind(labels) == "cpu":
         return cc.radix_histogram(labels, hi_bins, lo_bins)
-    _check_bins(hi_bins, lo_bins)
-    labels = _check_labels("labels", labels)
+    labels = _check_radix(labels, hi_bins, lo_bins)
     b, h, w = labels.shape
-    if h * w > MAX_HIST_PIXELS:
-        raise ValueError(f"{h}×{w} pixels: fp32 counts are exact below {MAX_HIST_PIXELS}")
     hist = torch.empty((b, hi_bins, lo_bins), dtype=torch.float32, device=labels.device)
     fn = _build.bind("rm_small.cu", "radix_hist", "ppiiii")
     _build.LAUNCHES["radix_hist"] += 1
@@ -345,7 +355,7 @@ def radix_histogram_cuda(labels: torch.Tensor, hi_bins: int = 64, lo_bins: int =
 def radix_keep_cuda(labels: torch.Tensor, hist: torch.Tensor, min_size: int) -> torch.Tensor:
     """Keep ids > 0 whose radix bin of the (B, hi_bins, lo_bins) `hist`
     holds ≥ `min_size` pixels, and ids ≥ hi_bins·lo_bins; zero the rest
-    (kernel B11b on CUDA; `cc.radix_keep` on the CPU)."""
+    (kernel B11's lookup entry on CUDA; `cc.radix_keep` on the CPU)."""
     from cellvit_tpu_torch.ops import cc
 
     if _device_kind(labels) == "cpu":
@@ -368,11 +378,25 @@ def radix_keep_cuda(labels: torch.Tensor, hist: torch.Tensor, min_size: int) -> 
 def remove_small_objects_bincount_cuda(labels: torch.Tensor, min_size: int, hi_bins: int = 64,
                                        lo_bins: int = 128) -> torch.Tensor:
     """`remove_small_objects` for compacted labels through a radix histogram
-    (kernels B11a then B11b on CUDA). Exact for ids below hi_bins·lo_bins;
-    past that the top bin's count is inflated and such ids are always kept."""
+    of hi_bins × lo_bins bins (kernel B11 on CUDA: one cluster launch of
+    `csrc/rm_small.cu` an image counts, reduces the counts across the
+    cluster and maps the pixels; `cc.remove_small_objects_bincount` on the
+    CPU). Exact for ids below hi_bins·lo_bins; past that the top bin's count
+    is inflated and such ids are always kept."""
+    from cellvit_tpu_torch.ops import cc
+
     if min_size <= 1:
         return labels
-    return radix_keep_cuda(labels, radix_histogram_cuda(labels, hi_bins, lo_bins), min_size)
+    if _device_kind(labels) == "cpu":
+        return cc.remove_small_objects_bincount(labels, min_size, hi_bins * lo_bins, hi_bins)
+    labels = _check_radix(labels, hi_bins, lo_bins)
+    b, h, w = labels.shape
+    out = torch.empty_like(labels)
+    fn = _build.bind("rm_small.cu", "radix_filter", "ppiiiii")
+    _build.LAUNCHES["radix_filter"] += 1
+    _build.check(fn(labels.data_ptr(), out.data_ptr(), b, h * w, hi_bins, lo_bins, min_size,
+                    _build.stream_of(labels)), "radix_filter")
+    return out
 
 
 def watershed_cuda(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tensor,

@@ -66,15 +66,16 @@
    launch counts at 0 just before each, and held against their plain
    versions exactly (B9-B11) or within `CONV_BF16_L2` (B12): the window
    size filter B10 on the batch's root labels and compacted markers; the
-   radix filter B11a/B11b on its markers at min_size 10 and 64; the sweep
+   radix filter B11 (one cluster launch a call; its histogram and lookup
+   entries apart) on its markers at min_size 10 and 64; the sweep
    watershed B9 on the batch's relief, markers and blob mask and on
    point-seeded floods of the blob discs, each also against 4096
    stabilization passes (ROADMAP C1); the channel-major conv B12 on the
-   input of the type tower's 64→64 3×3 conv with its folded weights. B9
-   and B12 also print their kernel ms (launches queued back to back), host
+   input of the type tower's 64→64 3×3 conv with its folded weights. Each
+   of them also prints its kernel ms (launches queued back to back), host
    µs and device kernels a call, B9's quantization apart, B12's TFLOP/s and
    its fp32 instantiation at the same shape; the build prints the spills of
-   both sources and checks the SASS of every bf16 B12 instantiation for
+   their sources and checks the SASS of every bf16 B12 instantiation for
    HGMMA.
 7. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
@@ -748,8 +749,11 @@ def point_seeded_floods(masks: np.ndarray, seed: int):
 
 
 def size_filter_phases(inter: dict, kernels: dict, phase_launches: dict) -> None:
-    """B10 on the batch's root labels and compacted markers (min_size 10),
-    B11a/B11b on its compacted markers (min_size 10 and 64)."""
+    """B10 on the batch's root labels and compacted markers (min_size 10);
+    B11, one cluster launch a call, on its compacted markers: the whole
+    filter at min_size 10 and 64, its histogram entry, and its lookup entry
+    at both. Each op: kernel ms of calls queued back to back (`kernel_ms`),
+    host µs and device kernels a call."""
     from cellvit_tpu_torch.ops import cc, cc_cuda
 
     roots, markers = inter["roots"], inter["markers"]
@@ -763,48 +767,67 @@ def size_filter_phases(inter: dict, kernels: dict, phase_launches: dict) -> None
           f"on the compacted markers (exact required); foreground kept {int((outs[0] > 0).sum())} of "
           f"{int((roots > 0).sum())} and {int((outs[1] > 0).sum())} of {int((markers > 0).sum())} px")
     require(diffs == [0, 0], "window size-filter kernel disagrees")
+    win = lambda: cc_cuda.remove_small_objects_cuda(roots, 10)
+    kd = dict(ms=kernel_ms(win), bound=bound_ms(4 * n_px + 4 * n_px))
     kernels["remove_small_objects"] = dict(
         route="cuda", source="cellvit_tpu_torch/csrc/rm_small.cu",
         replaces="cellvit_tpu/ops/cc_pallas.py:284",
-        max_abs_err=max(max_abs(a, p) for a, p in zip(outs, plain)),
-        ms=time_ms(lambda: cc_cuda.remove_small_objects_cuda(roots, 10), 20),
+        max_abs_err=max(max_abs(a, p) for a, p in zip(outs, plain)), ms=kd["ms"],
         plain_ms=time_ms(lambda: cc.remove_small_objects_window(roots, 10), 3),
-        library_ms=None, bound=bound_ms(4 * n_px + 4 * n_px))
+        library_ms=None, bound=kd["bound"])
+    scan_times("B10 remove_small_objects_cuda, root labels", kd, win, kernel_ms)
+    print(f"  B10 on the compacted markers: kernel_ms "
+          f"{kernel_ms(lambda: cc_cuda.remove_small_objects_cuda(markers, 10)):.4f}; CUDA events around 20 "
+          f"calls (host-paced) {time_ms(win, 20):.4f} ms on the root labels")
 
-    outs = driven({"radix_hist": 2, "rm_mapback": 2}, lambda: [
-        cc_cuda.remove_small_objects_bincount_cuda(markers, ms) for ms in (10, 64)])
-    phase_launches.update(radix_hist=2, rm_mapback=2)
-    hist = cc_cuda.radix_histogram_cuda(markers)
+    def b11():
+        whole = [cc_cuda.remove_small_objects_bincount_cuda(markers, ms) for ms in (10, 64)]
+        hist = cc_cuda.radix_histogram_cuda(markers)
+        return whole, hist, [cc_cuda.radix_keep_cuda(markers, hist, ms) for ms in (10, 64)]
+
+    whole, hist, keeps = driven({"radix_filter": 2, "radix_hist": 1, "rm_mapback": 2}, b11)
+    phase_launches.update(radix_filter=2, radix_hist=1, rm_mapback=2)
     phist = cc.radix_histogram(markers)
-    errs = {"B11a histogram": max_abs(hist, phist)}
-    for ms, out in zip((10, 64), outs):
-        keep = cc_cuda.radix_keep_cuda(markers, hist, ms)
-        errs[f"B11b keep, min_size {ms}"] = max_abs(keep, cc.radix_keep(markers, phist, ms))
+    errs = {"histogram entry": max_abs(hist, phist)}
+    for ms, out, keep in zip((10, 64), whole, keeps):
         errs[f"whole filter, min_size {ms}"] = max_abs(out, cc.remove_small_objects_bincount(markers, ms))
+        errs[f"lookup entry, min_size {ms}"] = max_abs(keep, cc.radix_keep(markers, phist, ms))
     n_ids = int(markers[markers < cc_cuda.INT_MAX].max())
-    differ = outs[0] != plain[1]
+    differ = whole[0] != plain[1]
     print(f"B11 radix size filter on the compacted markers (largest id {n_ids}, table 8192): max |Δ| "
           + ", ".join(f"{k} {v:g}" for k, v in errs.items()) + " (exact required); min_size 10 "
           f"against B10 on the same labels: {int(differ.sum())} px differ, "
           f"{int((differ & (markers == cc_cuda.INT_MAX)).sum())} of them on the id INT_MAX that the "
           "3-pass compaction leaves unresolved (ROADMAP C4), an overflow id that B11 keeps")
-    require(all(v == 0 for v in errs.values()), "radix size-filter kernels disagree")
+    require(all(v == 0 for v in errs.values()), "radix size-filter kernel disagrees")
     nb = hist[0].numel()
     bins = (cc.radix_bins(markers, 64, 128)
             + nb * torch.arange(markers.shape[0], device=markers.device).view(-1, 1, 1)).flatten()
-    common = dict(route="cuda", source="cellvit_tpu_torch/csrc/rm_small.cu")
-    kernels["radix_hist"] = dict(
-        common, replaces="cellvit_tpu/ops/cc_pallas.py:345", max_abs_err=errs["B11a histogram"],
-        ms=time_ms(lambda: cc_cuda.radix_histogram_cuda(markers), 20),
-        plain_ms=time_ms(lambda: cc.radix_histogram(markers), 3),
-        library_ms=time_ms(lambda: torch.bincount(bins, minlength=nb * markers.shape[0]), 20),
-        bound=bound_ms(4 * n_px + 4 * hist.numel()))
-    kernels["rm_mapback"] = dict(
-        common, replaces="cellvit_tpu/ops/cc_pallas.py:377",
-        max_abs_err=max(v for k, v in errs.items() if k != "B11a histogram"),
-        ms=time_ms(lambda: cc_cuda.radix_keep_cuda(markers, hist, 10), 20),
-        plain_ms=time_ms(lambda: cc.radix_keep(markers, hist, 10), 3),
-        library_ms=None, bound=bound_ms(4 * n_px + 4 * hist.numel() + 4 * n_px))
+    common = dict(route="cuda", source="cellvit_tpu_torch/csrc/rm_small.cu", library_ms=None)
+    ops = {
+        "radix_filter": ("B11 remove_small_objects_bincount_cuda (the whole filter, one launch), min_size 10",
+                         lambda: cc_cuda.remove_small_objects_bincount_cuda(markers, 10),
+                         lambda: cc.remove_small_objects_bincount(markers, 10), 8 * n_px,
+                         "cellvit_tpu/ops/cc_pallas.py:345 and :377",
+                         max(v for k, v in errs.items() if k.startswith("whole"))),
+        "radix_hist": ("B11 radix_histogram_cuda (the histogram entry)",
+                       lambda: cc_cuda.radix_histogram_cuda(markers), lambda: cc.radix_histogram(markers),
+                       4 * n_px + 4 * hist.numel(), "cellvit_tpu/ops/cc_pallas.py:345",
+                       errs["histogram entry"]),
+        "rm_mapback": ("B11 radix_keep_cuda (the lookup entry), min_size 10",
+                       lambda: cc_cuda.radix_keep_cuda(markers, hist, 10), lambda: cc.radix_keep(markers, hist, 10),
+                       8 * n_px + 4 * hist.numel(), "cellvit_tpu/ops/cc_pallas.py:377",
+                       max(v for k, v in errs.items() if k.startswith("lookup"))),
+    }
+    for name, (label, fn, plain_fn, n_bytes, replaces, err) in ops.items():
+        kd = dict(ms=kernel_ms(fn), bound=bound_ms(n_bytes))
+        kernels[name] = dict(common, replaces=replaces, max_abs_err=err, ms=kd["ms"],
+                             plain_ms=time_ms(plain_fn, 3), bound=kd["bound"])
+        scan_times(label, kd, fn, kernel_ms)
+    kernels["radix_hist"]["library_ms"] = time_ms(lambda: torch.bincount(bins, minlength=nb * markers.shape[0]), 20)
+    print(f"  B11 whole filter at min_size 64: kernel_ms "
+          f"{kernel_ms(lambda: cc_cuda.remove_small_objects_bincount_cuda(markers, 64)):.4f}; "
+          f"torch.bincount of the same bins (CUDA events, 20 calls) {kernels['radix_hist']['library_ms']:.4f} ms")
 
 
 def watershed_phase(inter: dict, masks: np.ndarray, kernels: dict, phase_launches: dict) -> None:
@@ -956,6 +979,8 @@ def main() -> int:
                         ("flood_bits.cu", "<rows a warp, words a lane, mode (0 flood, 1 fill_holes)>"),
                         ("win_attn.cu", "<DV, key tiles>"),
                         ("watershed.cu", "<heights: h 8-bit, t 16-bit>"),
+                        ("rm_small.cu", "window <TMA>; radix <mode (0 whole filter, 1 histogram, 2 lookup), "
+                                        "16-byte route>"),
                         ("conv3x3_cm.cu", "<TMA, resident weights>")):
         if src in report:
             spills = ptxas_spills(report[src][1])

@@ -15,6 +15,7 @@ from cellvit_tpu.ops.cc_pallas import (
     watershed_pallas,
 )
 from cellvit_tpu_torch.ops import cc, cc_cuda
+from test_torch_cuda import _size_filter_labels
 
 # one intra-op thread each: the suite runs as parallel pytest workers
 torch.set_num_threads(1)
@@ -440,3 +441,268 @@ def test_emulated_watershed_kernel_fails_planted_faults(fault):
         assert fault == "gauss_seidel"
         return
     assert (got != want.numpy()).any() or (passes != want_passes.numpy()).any()
+
+
+# ---------------------------------------------------------------------------
+# numpy replays of `csrc/rm_small.cu`: B10's tiles and boxes, B11's cluster
+
+
+def _rm_window_tile(min_size):
+    """B10's tile at `min_size`, as `win_geom` in `csrc/rm_small.cu` picks it:
+    (TH, TW, halo rows r, halo columns R). TW from 64 down to 32 until the
+    box TW + 2R is ≤ 256 (a TMA box's limit), R = r rounded up to 4; then TH
+    from 32 down to 8 until the box (TH + 2r ≤ 256 rows) and the tile's
+    list of uint16 pixels fit an eighth of an SM, else from 32 down until
+    they fit a whole block's shared memory."""
+    r = min_size - 1
+    big_r = (r + 3) // 4 * 4
+    tw = 64
+    while tw > 32 and tw + 2 * big_r > 256:
+        tw //= 2
+    for budget in (233472 // 8 - 1024, 232448):
+        th = 32
+        while th >= 8:
+            words = -(-(th + 2 * r) * (tw + 2 * big_r) // 32) * 32
+            if th + 2 * r <= 256 and 128 + words * 4 + th * tw * 2 <= budget:
+                return th, tw, r, big_r
+            th //= 2
+    raise ValueError(f"min_size {min_size}: no tile fits")
+
+
+def _emulated_rm_window(lab, min_size, tile=None, fault=None):
+    """numpy replay of B10 (`rm_window_kernel`) on (B, H, W) int32 labels:
+    tiles of `tile` (TH, TW; default the kernel's `_rm_window_tile`), each
+    box of TH + 2r rows × TW + 2R columns (R = r rounded up to 4, the box's
+    first column a multiple of 4 as TMA needs) loaded row-major into a flat
+    slot with 0 off the image (TMA's fill); pass 1 writes every pixel, a
+    labelled one with its label, and lists the labelled ones; pass 2 counts
+    each listed pixel's window centre-out (rows 0, −1, +1, −2, +2, …), leaves
+    it as soon as the count reaches min_size, and writes 0 where the count
+    ends below. Returns (labels kept, rows read a pixel). Planted faults:
+    "short_halo" (a column halo of r − 1: the window's last column reads the
+    next box row's first word, as shared memory would), "exit_gt" (exit and
+    keep at count > min_size), "fill_own" (off-image elements match the
+    centre label)."""
+    b, h, w = lab.shape
+    th, tw = tile or _rm_window_tile(min_size)[:2]
+    r = min_size - 1
+    big_r = r - 1 if fault == "short_halo" else (r + 3) // 4 * 4
+    n = 2 * r + 1
+    bh, bw = th + 2 * r, tw + 2 * big_r
+    order = [0] + [s * d for d in range(1, r + 1) for s in (-1, 1)]
+    reached = (lambda c: c > min_size) if fault == "exit_gt" else (lambda c: c >= min_size)
+    out = np.full_like(lab, -7)  # the output's memory before the kernel: every pixel must be written
+    rows = np.zeros(lab.shape, np.int32)
+    ty, cx = np.mgrid[0:th, 0:tw]
+    base = (ty + r) * bw + cx + big_r - r  # flat index of each window's centre row start
+    for i in range(b):
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                assert fault == "short_halo" or (x0 - big_r) % 4 == 0
+                box = np.zeros((bh, bw), np.int32)
+                off = np.ones((bh, bw), bool)
+                ys, xs = max(y0 - r, 0), max(x0 - big_r, 0)
+                ye, xe = min(y0 - r + bh, h), min(x0 - big_r + bw, w)
+                box[ys - y0 + r:ye - y0 + r, xs - x0 + big_r:xe - x0 + big_r] = lab[i, ys:ye, xs:xe]
+                off[ys - y0 + r:ye - y0 + r, xs - x0 + big_r:xe - x0 + big_r] = False
+                flat = np.concatenate([box.ravel(), np.zeros(2 * n, np.int32)])  # the slot and past it
+                off_flat = np.concatenate([off.ravel(), np.zeros(2 * n, bool)])
+                inside = (y0 + ty < h) & (x0 + cx < w)
+                v = flat[base + r]
+                tile_out = np.maximum(v, 0)  # pass 1
+                listed = inside & (v > 0)
+                cnt = np.zeros((th, tw), np.int64)
+                nrows = np.zeros((th, tw), np.int32)
+                active = listed.copy()
+                for dy in order:  # pass 2
+                    if not active.any():
+                        break
+                    idx = base[active][:, None] + dy * bw + np.arange(n)
+                    match = flat[idx] == v[active][:, None]
+                    if fault == "fill_own":
+                        match |= off_flat[idx]
+                    cnt[active] += match.sum(1)
+                    nrows[active] += 1
+                    active &= ~reached(cnt)
+                tile_out[listed & ~reached(cnt)] = 0
+                ye_o, xe_o = min(y0 + th, h), min(x0 + tw, w)
+                out[i, y0:ye_o, x0:xe_o] = tile_out[:ye_o - y0, :xe_o - x0]
+                rows[i, y0:ye_o, x0:xe_o] = nrows[:ye_o - y0, :xe_o - x0]
+    return out, rows
+
+
+def _radix_slice(nb, k):
+    """B11's slice of bins a block: the least power of two ≥ 32 with k
+    slices covering nb."""
+    s = 32
+    while s * k < nb:
+        s *= 2
+    return s
+
+
+def _emulated_radix_filter(lab, min_size, hi_bins, lo_bins, k=8, hist=None, fault=None):
+    """numpy replay of B11 (`radix_filter_kernel`) on (B, H, W) int32 ids,
+    k blocks an image: each block's share of 4-pixel groups (single pixels
+    where H·W is no multiple of 4) counted into its own table of
+    nb = hi_bins·lo_bins words by runs of equal bins clamp(v, 0, nb − 1), the
+    background apart; the slices of S bins summed across the k tables (or,
+    given `hist`, read from it) into fp32 counts and bit words small =
+    count < min_size, each slice's words stored into every table at the
+    slice's start; then each block's pixels mapped through its table's bit
+    words. Returns (kept ids, fp32 histogram). Planted faults: "share"
+    (each share's end one group late: a group counted twice), "slice" (the
+    first block's slice of words not stored: its bits read from the counts),
+    "overflow" (ids ≥ nb looked up in the table instead of always kept)."""
+    b, h, w = lab.shape
+    nb = hi_bins * lo_bins
+    s_len = _radix_slice(nb, k)
+    vec = (h * w) % 4 == 0
+    group = 4 if vec else 1
+    units = h * w // group
+    out = np.empty((b, h * w), np.int32)
+    hist_out = np.empty((b, nb), np.float32)
+    for i in range(b):
+        img = lab[i].ravel()
+        shares = []
+        for rank in range(k):
+            u0, u1 = units * rank // k, units * (rank + 1) // k
+            if fault == "share" and rank < k - 1:
+                u1 += 1
+            shares.append((u0 * group, min(u1 * group, h * w)))
+        tables = []
+        for p0, p1 in shares:
+            table = np.zeros(nb, np.int64)
+            if hist is None:
+                bins = np.clip(img[p0:p1], 0, nb - 1).reshape(-1, group)
+                start = np.ones(bins.shape, bool)
+                start[:, 1:] = bins[:, 1:] != bins[:, :-1]  # a run of equal bins in a group: one atomic
+                run_id = np.cumsum(start.ravel()) - 1
+                run_len = np.bincount(run_id)
+                run_bin = bins.ravel()[start.ravel()]
+                zeros = run_len[run_bin == 0].sum()  # the background, in a register
+                np.add.at(table, run_bin[run_bin != 0], run_len[run_bin != 0])
+                table[0] += zeros
+            tables.append(table)
+        totals = np.zeros(nb, np.float32)
+        for rank in range(k):
+            s0 = rank * s_len
+            if s0 >= nb:
+                continue
+            sl = slice(s0, min(s0 + s_len, nb))
+            if hist is None:
+                totals[sl] = sum(t[sl] for t in tables).astype(np.float32)
+            else:
+                totals[sl] = hist[i].ravel()[sl]
+            small = np.zeros(s_len, bool)
+            small[:sl.stop - s0] = totals[sl] < np.float32(min_size)
+            words = _words(small)
+            if fault == "slice" and rank == 0:
+                continue
+            nw = (sl.stop - s0 + 31) // 32
+            for t in tables:
+                t[s0:s0 + nw] = words[:nw]
+        hist_out[i] = totals
+        for (p0, p1), t in zip(shares, tables):
+            v = img[p0:p1]
+            vv = np.clip(v, 0, nb - 1)
+            word = t[(vv & ~(s_len - 1)) + ((vv & (s_len - 1)) >> 5)].astype(np.uint32)
+            is_small = ((word >> (vv & 31).astype(np.uint32)) & 1).astype(bool)
+            keep = (v > 0) & ((v >= nb) | ~is_small) if fault != "overflow" else (v > 0) & ~is_small
+            out[i, p0:p1] = np.where(keep, v, 0)
+    return out.reshape(lab.shape), hist_out.reshape(b, hi_bins, lo_bins)
+
+
+def _planted(min_size, h=40, w=70, tw=32):
+    """Labels that each B10 fault shows on: a component of exactly min_size
+    pixels (a row), one of min_size − 1 in the top-left corner (off-image
+    elements around it), and a row of min_size pixels starting at the last
+    column of the first tile (its first pixel needs column x + r)."""
+    lab = _size_filter_labels(min_size, 1, h, w, max_id=50)
+    lab[0, :3, :] = 0
+    lab[0, 0, 1:min_size] = 101                       # min_size − 1 pixels at the corner
+    lab[0, 2, 1:1 + min_size] = 102                   # exactly min_size
+    lab[0, 10:13, tw - 2:tw + min_size + 1] = 0
+    lab[0, 11, tw - 1:tw - 1 + min_size] = 103        # across the first tile's right edge
+    return lab
+
+
+@pytest.mark.parametrize("shape,min_size,tile", [
+    ((2, 96, 128), 2, None), ((2, 96, 128), 10, None), ((2, 96, 128), 10, (8, 32)),
+    ((3, 77, 33), 10, None), ((3, 77, 33), 2, (16, 32)), ((1, 40, 1030), 10, None),
+    ((1, 1, 1), 10, None), ((2, 70, 90), cc_cuda.RM_SMALL_MAX_MIN_SIZE, None),
+])
+def test_emulated_window_filter_matches_plain_and_pallas(shape, min_size, tile):
+    """The replay of B10's tiles, boxes, 0 fill and centre-out exit equals the
+    plain window filter and `remove_small_objects_pallas` (interpret mode;
+    the plain version alone at the limit, whose (2·105 − 1)² window the
+    Pallas interpreter takes minutes for) on shapes that no tile or 4
+    columns divide, ids −5, 8192 and 2³⁰, min_size 2, 10 and the limit. A
+    pixel inside a large disc leaves after its own row."""
+    lab = _size_filter_labels(sum(shape) + min_size, *shape)
+    if shape == (2, 96, 128):
+        lab[1, 40:60, 40:70] = 77  # a 20 × 30 block: its inner pixels stop after one row
+    got, rows = _emulated_rm_window(lab, min_size, tile)
+    want = cc.remove_small_objects_window(torch.from_numpy(lab), min_size).numpy()
+    np.testing.assert_array_equal(got, want)
+    if min_size <= 10 and shape[1] * shape[2] <= 96 * 128:
+        pallas = np.asarray(remove_small_objects_pallas(jnp.asarray(lab), min_size, interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+    if shape == (2, 96, 128):
+        assert rows[1, 50, 55] == 1 and (rows[lab <= 0] == 0).all()
+    assert 0 < (got > 0).sum() < (lab > 0).sum() or lab.size == 1
+
+
+@pytest.mark.parametrize("fault", ["short_halo", "exit_gt", "fill_own"])
+def test_emulated_window_filter_fails_planted_faults(fault):
+    """Each planted defect of the B10 replay shows against the plain filter:
+    a column halo one short of r, the exit and keep at count > min_size, and
+    off-image elements that match the centre label."""
+    for min_size in (2, 10):
+        lab = _planted(min_size)
+        want = cc.remove_small_objects_window(torch.from_numpy(lab), min_size).numpy()
+        ok, _ = _emulated_rm_window(lab, min_size, (8, 32))
+        np.testing.assert_array_equal(ok, want)
+        got, _ = _emulated_rm_window(lab, min_size, (8, 32), fault=fault)
+        assert (got != want).any(), (fault, min_size)
+
+
+@pytest.mark.parametrize("shape,bins,k", [
+    ((2, 96, 128), (64, 128), 8), ((2, 96, 128), (4, 8), 8), ((3, 77, 33), (64, 128), 8),
+    ((3, 77, 33), (4, 8), 16), ((1, 1, 1), (64, 128), 8), ((2, 64, 96), (64, 128), 12),
+])
+@pytest.mark.parametrize("min_size", [2, 10])
+def test_emulated_radix_filter_matches_plain_and_pallas(shape, bins, k, min_size):
+    """The replay of B11's cluster (shares, runs, slices, pushed bit words,
+    the lookup) equals the plain radix filter and histogram, and
+    `remove_small_objects_bincount_pallas` (interpret mode) where H is a
+    multiple of its 8-row groups, on H·W that is no multiple of 4, ids −5, 8192 and 2³⁰, 64 × 128 and 4 × 8 bins and 8,
+    12 and 16 blocks an image; its lookup from a given histogram, too."""
+    lab = _size_filter_labels(sum(shape) + k, *shape, max_id=700)
+    got, hist = _emulated_radix_filter(lab, min_size, *bins, k=k)
+    t = torch.from_numpy(lab)
+    want_hist = cc.radix_histogram(t, *bins).numpy()
+    np.testing.assert_array_equal(hist, want_hist)
+    want = cc.remove_small_objects_bincount(t, min_size, bins[0] * bins[1], bins[0]).numpy()
+    np.testing.assert_array_equal(got, want)
+    if shape[1] % 8 == 0:  # the Pallas kernels take 8-row groups: H a multiple of 8
+        pallas = np.asarray(remove_small_objects_bincount_pallas(
+            jnp.asarray(lab), min_size, hi_bins=bins[0], lo_bins=bins[1], interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+    kept, _ = _emulated_radix_filter(lab, min_size, *bins, k=k, hist=want_hist)
+    np.testing.assert_array_equal(kept, cc.radix_keep(t, torch.from_numpy(want_hist), min_size).numpy())
+    n = min(3, lab.size)
+    assert got.reshape(-1)[:n].tolist() == [0, 8192, 2**30][:n]
+
+
+@pytest.mark.parametrize("fault", ["share", "slice", "overflow"])
+def test_emulated_radix_filter_fails_planted_faults(fault):
+    """Each planted defect of the B11 replay shows against the plain filter:
+    a share boundary one group late, a slice of bit words never stored, and
+    an overflow id looked up instead of kept."""
+    lab = _size_filter_labels(5, 2, 96, 128, max_id=1000)
+    want = cc.remove_small_objects_bincount(torch.from_numpy(lab), 10).numpy()
+    ok, _ = _emulated_radix_filter(lab, 10, 64, 128)
+    np.testing.assert_array_equal(ok, want)
+    got, hist = _emulated_radix_filter(lab, 10, 64, 128, fault=fault)
+    want_hist = cc.radix_histogram(torch.from_numpy(lab)).numpy()
+    assert (got != want).any() or (hist != want_hist).any()

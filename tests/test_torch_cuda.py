@@ -471,6 +471,72 @@ def test_bincount_kernels_match_plain(cuda, min_size, bins):
     assert torch.equal(got, cc.remove_small_objects_bincount(lab, min_size, bins[0] * bins[1], bins[0]))
 
 
+def _size_filter_labels(seed, b, h, w, max_id=2**30):
+    """Discs of radius 0-11 with random ids in 1 … max_id − 1, over noise of
+    ids −5 … 19 on 2% of the pixels, and the ids −5, 8192 and 2³⁰ at the
+    first pixels: components of every size, the window's early exit inside
+    the large ones, ids the radix table clips and overflows."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((b, h, w), np.int32)
+    for i in range(b):
+        noise = rng.random((h, w)) < 0.02
+        lab[i][noise] = rng.integers(-5, 20, int(noise.sum()))
+        for _ in range(max(1, h * w // 400)):
+            cy, cx, r = int(rng.integers(0, h)), int(rng.integers(0, w)), int(rng.integers(0, 12))
+            y0, x0 = max(cy - r, 0), max(cx - r, 0)
+            yy, xx = np.mgrid[y0:min(cy + r + 1, h), x0:min(cx + r + 1, w)]
+            lab[i, y0:cy + r + 1, x0:cx + r + 1][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = rng.integers(1, max_id)
+    lab.reshape(-1)[:3] = [-5, 8192, 2**30][:lab.size]
+    return lab
+
+
+# B10: the TMA route (W a multiple of 4) and the element-staged one, single
+# pixels, ragged tiles, min_size 2 up to the limit, and 9 × 1024² (4608
+# tiles of 32 × 64 at min_size 10: more than the persistent grid's blocks,
+# so that each block walks several tiles)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 77, 33), (2, 40, 1030), (2, 96, 160), (9, 1024, 1024)])
+@pytest.mark.parametrize("min_size", [2, 10, 64, cc_cuda.RM_SMALL_MAX_MIN_SIZE])
+def test_window_size_filter_kernel_shapes(cuda, shape, min_size):
+    lab = torch.from_numpy(_size_filter_labels(min_size, *shape)).to(cuda)
+    before = _build.LAUNCHES["remove_small_objects"]
+    got = cc_cuda.remove_small_objects_cuda(lab, min_size)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["remove_small_objects"] == before + 1
+    want = cc.remove_small_objects_window(lab, min_size)
+    assert torch.equal(got, want), int((got != want).sum())
+    if shape[0] == 9 and min_size == 10:
+        assert 0 < int((got > 0).sum()) < int((lab > 0).sum())
+
+
+def test_window_size_filter_refuses_beyond_its_limit(cuda):
+    with pytest.raises(ValueError):
+        cc_cuda.remove_small_objects_cuda(torch.ones((1, 8, 8), dtype=torch.int32, device=cuda),
+                                          cc_cuda.RM_SMALL_MAX_MIN_SIZE + 1)
+
+
+# B11: one cluster launch a call, its histogram and lookup entries; 1, 9 and
+# 17 images (17 clusters of 8 blocks: more than the card holds at once), H·W
+# no multiple of 4 (the scalar route), clipped and overflow ids
+@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (1, 100, 150), (9, 77, 33), (17, 256, 256), (9, 1024, 1024)])
+@pytest.mark.parametrize("min_size,bins", [(2, (64, 128)), (10, (64, 128)), (10, (4, 8)), (64, (64, 128))])
+def test_radix_size_filter_kernel_shapes(cuda, b, h, w, min_size, bins):
+    lab = torch.from_numpy(_size_filter_labels(100 + min_size, b, h, w, max_id=9000)).to(cuda)
+    nb = bins[0] * bins[1]
+    counts = dict(_build.LAUNCHES)
+    got = cc_cuda.remove_small_objects_bincount_cuda(lab, min_size, *bins)
+    hist = cc_cuda.radix_histogram_cuda(lab, *bins)
+    kept = cc_cuda.radix_keep_cuda(lab, hist, min_size)
+    torch.cuda.synchronize()
+    assert {k: v - counts[k] for k, v in _build.LAUNCHES.items() if v != counts[k]} == {
+        "radix_filter": 1, "radix_hist": 1, "rm_mapback": 1}
+    want_hist = cc.radix_histogram(lab, *bins)
+    assert torch.equal(hist, want_hist)
+    assert torch.equal(kept, cc.radix_keep(lab, want_hist, min_size))
+    assert torch.equal(got, cc.remove_small_objects_bincount(lab, min_size, nb, bins[0]))
+    n = min(3, lab.numel())
+    assert got.reshape(-1)[:n].tolist() == [0, 8192, 2**30][:n]  # ≤ 0 dropped, overflow ids kept
+
+
 def _disc_flood(cuda, seed, b=2, h=100, w=150, n=12, grown=False):
     """Disc masks with relief −exp(−r²/R²): one marker pixel per disc, or
     with `grown` its core of radius R − 3."""

@@ -31,6 +31,10 @@ torch.set_num_threads(1)
 PACKAGE = Path(__file__).resolve().parent.parent / "cellvit_tpu_torch"
 KW = dict(num_nuclei_classes=6, num_tissue_classes=19, embed_dim=64, depth=4,
           num_heads=2, extract_layers=(1, 2, 3, 4))
+#: relative L2 of the tiny CellViT's bf16 tokens against JAX's: the two round
+#: activations to bf16 at different places (7.1e-3 with every LayerNorm
+#: affine in fp32 as flax keeps it)
+TOKENS_L2 = 1e-2
 RUN_CONF = {"data": {"num_nuclei_classes": 6, "num_tissue_classes": 19},
             "transformations": {"normalize": {"mean": [0.6, 0.5, 0.4],
                                               "std": [0.3, 0.25, 0.2]}}}
@@ -134,6 +138,70 @@ def test_mixed_precision_keeps_fp32_weights_and_matches_jax_bf16():
                 err_rounded.max(), err_rounded.mean())
     assert got["type_map_cmajor"].dtype == torch.bfloat16
     assert {p.dtype for p in infer.model.parameters()} == {torch.float32}
+
+
+def test_mixed_precision_layernorm_affines_match_jax_bf16():
+    """The same tiny CellViT and randomised BN statistics, with every
+    LayerNorm weight drawn as 1 + 0.3·N(0, 1) and every bias as 0.2·N(0, 1)
+    (seed 3), which bf16 does not round exactly, held against JAX's bf16
+    `fused_forward_maps` (flax keeps the LayerNorm affines in fp32): np_prob
+    and hv within the bounds of the test above. With the probe weights those
+    maps read only the image skip path, so the encoder's tokens, which every
+    LayerNorm feeds, are held too: relative L2 within TOKENS_L2. Measured:
+    7.4e-3 with the port's bf16 affines, 7.1e-3 with the affines in fp32
+    (the rest is bf16 rounding at other places), 2.9e-2 with the affines
+    rounded to fp8 e4m3, which must break the bound. `-s` prints the three."""
+    from cellvit_tpu_torch.models import layers
+
+    model, jm, _ = _probe_model()
+    g = torch.Generator().manual_seed(2)
+    ln = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.copy_(torch.randn(mod.running_mean.shape, generator=g) * 0.2)
+                mod.running_var.copy_(torch.rand(mod.running_var.shape, generator=g) * 1.5 + 0.5)
+            if isinstance(mod, torch.nn.LayerNorm):
+                mod.weight.copy_(1.0 + 0.3 * torch.randn(mod.weight.shape, generator=ln))
+                mod.bias.copy_(0.2 * torch.randn(mod.bias.shape, generator=ln))
+    assert sum(isinstance(m, layers.LayerNorm) for m in model.modules()) == 9  # 2 a block, the last
+    variables = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()}, False)
+    infer = CellSegmentationInference(model=model, run_conf=RUN_CONF, mixed_precision=True,
+                                      device="cpu")
+    x = (_tiles(2, 256) - np.asarray([0.6, 0.5, 0.4], np.float32)) / np.asarray(
+        [0.3, 0.25, 0.2], np.float32)
+    xt = torch.from_numpy(x).to(infer.dtype)
+
+    def affines_as(dtype):
+        def forward(self, x):
+            out_dtype = layers.compute_dtype(x)
+            with torch.autocast(x.device.type, enabled=False):
+                w, b = (t.to(dtype).float() for t in (self.weight, self.bias))
+                out = torch.nn.functional.layer_norm(x.float(), self.normalized_shape, w, b, self.eps)
+            return out.to(out_dtype)
+        return forward
+
+    got = {"bf16 (the port)": infer.forward_maps(xt, retrieve_tokens=True)}
+    for name, dtype in (("fp32", torch.float32), ("fp8 e4m3", torch.float8_e4m3fn)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(layers.LayerNorm, "forward", affines_as(dtype))
+            got[name] = infer.forward_maps(xt, retrieve_tokens=True)
+    want = fused_forward_maps(jm.clone(dtype=jnp.bfloat16), variables, jnp.asarray(x),
+                              retrieve_tokens=True)
+    bounds = {"np_prob": (2e-3, 1e-5), "hv0": (4e-2, 3e-4), "hv1": (4e-2, 3e-4)}
+    for key, (max_bound, mean_bound) in bounds.items():
+        errs = {n: np.abs(o[key].numpy() - np.asarray(want[key])) for n, o in got.items()}
+        print(f"{key}: max, mean |Δ| with the LayerNorm affines in "
+              + "; ".join(f"{n} {e.max():.3e}, {e.mean():.3e}" for n, e in errs.items()))
+        err = errs["bf16 (the port)"]
+        assert err.max() <= max_bound and err.mean() <= mean_bound, (key, err.max(), err.mean())
+    tok = np.asarray(want["tokens"], np.float32)
+    rel = {n: float(np.linalg.norm(o["tokens"].float().numpy() - tok) / np.linalg.norm(tok))
+           for n, o in got.items()}
+    print("tokens: relative L2 with the LayerNorm affines in "
+          + "; ".join(f"{n} {v:.3e}" for n, v in rel.items()) + f" (bound {TOKENS_L2:g})")
+    assert rel["bf16 (the port)"] <= TOKENS_L2 and rel["fp32"] <= TOKENS_L2, rel
+    assert rel["fp8 e4m3"] > TOKENS_L2, rel
 
 
 def test_package_imports_no_jax():
