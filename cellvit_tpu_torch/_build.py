@@ -2,7 +2,8 @@
 
 Each `csrc/*.cu` file exposes a plain C interface (pointers and the CUDA
 stream as `void*`, sizes as `int`, a `cudaError_t` as the return value), so
-it compiles in seconds without PyTorch's headers. A source is built at first
+it compiles in seconds without PyTorch's headers. `png_unfilter.cu` is host
+code alone, built the same way and bound without a stream (`bind_host`). A source is built at first
 use into `build/`, under a name keyed by a hash of its text, the shared
 `csrc/*.cuh` headers and the flags,
 and loaded with `ctypes`. `build_all()` starts one `nvcc` per source, all at
@@ -23,7 +24,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("flash_attn.cu", "flash_attn_bwd.cu", "flood_bits.cu", "seg_min.cu", "win_qkv_attn.cu",
-           "relpos_attn.cu", "win_attn.cu", "rm_small.cu", "watershed.cu", "conv3x3_cm.cu")
+           "relpos_attn.cu", "win_attn.cu", "rm_small.cu", "watershed.cu", "conv3x3_cm.cu",
+           "png_unfilter.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,6 +123,15 @@ def bind(src: str, name: str, sig: str):
     i = int, f = float), followed by the stream."""
     fn = getattr(load(src), name)
     fn.argtypes = [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bind_host(src: str, name: str, sig: str):
+    """C entry `name` of host code, whose arguments are spelled by `sig`
+    alone (no stream). ctypes releases the interpreter's lock for the call."""
+    fn = getattr(load(src), name)
+    fn.argtypes = [_CTYPES[c] for c in sig]
     fn.restype = ctypes.c_int
     return fn
 

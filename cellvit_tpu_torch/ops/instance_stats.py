@@ -1,18 +1,22 @@
 """Per-instance statistics by scatter reductions (port of
 `cellvit_tpu/ops/instance_stats.py`: `relabel_consecutive`,
-`instance_stats_batch`).
+`instance_stats_batch`, `contours_from_instance_map`).
 
 Area, centroid, bounding box, majority-vote type and mean nucleus
 probability of every instance of a (B, H, W) label batch, as fixed-capacity
 (B, K, …) tensors. Scatter indices are int64; integer sums are exact.
-Contour extraction needs cv2 and belongs to the host pipeline.
+Contour extraction runs on the host (`ops/contours.py`, cv2's contract
+without cv2).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+
+from cellvit_tpu_torch.ops.contours import trace_outer_border
 
 
 def relabel_consecutive(inst: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -103,3 +107,49 @@ def instance_stats_batch(
         "type_prob": per_image(type_prob),
         "mean_prob": per_image(mean_prob),
     }
+
+
+def contours_from_instance_map(
+    inst_map: np.ndarray,
+    valid_ids: Optional[np.ndarray] = None,
+    bboxes: Optional[np.ndarray] = None,
+) -> Dict[int, np.ndarray]:
+    """Host contour of each instance: `cv2.findContours(crop, RETR_TREE,
+    CHAIN_APPROX_SIMPLE)[0]` of its bounding-box crop (reference
+    post_proc_cellvit.py:106-123). Returns {instance_id: (N, 2) int32
+    contour in (x, y)}; instances whose contour has < 3 points are skipped
+    like the reference.
+
+    `bboxes`: the device statistics' (K, 4) boxes (rmin, rmax, cmin, cmax;
+    max-exclusive) of ids 1..K. With them each instance is compared only
+    inside its box, and the ids are those with a non-empty box (and in
+    `valid_ids`, if given); without them, the ids are `valid_ids` or every
+    label of the map, and each box is found from the whole map.
+    """
+    out: Dict[int, np.ndarray] = {}
+    if bboxes is not None:
+        bboxes = np.asarray(bboxes)
+        ids = np.flatnonzero(bboxes[:, 1] > bboxes[:, 0]) + 1
+        if valid_ids is not None:
+            ids = ids[np.isin(ids, valid_ids)]
+    else:
+        ids = valid_ids if valid_ids is not None else np.unique(inst_map)
+    for inst_id in ids:
+        if inst_id == 0:
+            continue
+        if bboxes is not None:
+            rmin, rmax, cmin, cmax = (int(v) for v in bboxes[inst_id - 1])
+            crop = inst_map[rmin:rmax, cmin:cmax] == inst_id
+        else:
+            mask = inst_map == inst_id
+            ys, xs = np.nonzero(mask)
+            if ys.size == 0:
+                continue
+            rmin, rmax = ys.min(), ys.max() + 1
+            cmin, cmax = xs.min(), xs.max() + 1
+            crop = mask[rmin:rmax, cmin:cmax]
+        contour = trace_outer_border(crop)
+        if contour.shape[0] < 3:
+            continue
+        out[int(inst_id)] = contour + np.array([[cmin, rmin]], np.int32)
+    return out

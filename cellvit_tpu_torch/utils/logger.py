@@ -1,13 +1,58 @@
-"""Experiment metric logging (the offline part of `cellvit_tpu/utils/logger.py`):
-`MetricLogger` writes JSON lines to the run directory; `AverageMeter` keeps a
-running mean."""
+"""Logging (the offline part of `cellvit_tpu/utils/logger.py`): `Logger`
+builds a python logger (stdout and an optional rotating file);
+`MetricLogger` writes JSON lines to the run directory; `AverageMeter` keeps
+a running mean."""
 
 from __future__ import annotations
 
 import json
+import logging
+import logging.handlers
+import sys
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+
+class Logger:
+    """Python logger factory (stdout + optional rotating file)."""
+
+    def __init__(
+        self,
+        level: str = "INFO",
+        log_dir: Optional[Path] = None,
+        comment: str = "logs",
+        use_timestamp: bool = False,
+    ) -> None:
+        self.level = getattr(logging, level.upper())
+        self.log_dir = Path(log_dir) if log_dir else None
+        self.comment = comment
+        self.use_timestamp = use_timestamp
+
+    def create_logger(self) -> logging.Logger:
+        logger = logging.getLogger(f"cellvit_tpu_torch.{self.comment}")
+        logger.setLevel(self.level)
+        # close before clearing: a Logger per run on the same name must not
+        # leak one file descriptor per run
+        for h in logger.handlers:
+            h.close()
+        logger.handlers.clear()
+        logger.propagate = False
+        fmt = logging.Formatter("%(asctime)s [%(levelname)s] - %(message)s")
+        sh = logging.StreamHandler(sys.stdout)
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+        if self.log_dir is not None:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            name = self.comment
+            if self.use_timestamp:
+                name = f"{time.strftime('%Y-%m-%dT%H%M%S')}_{name}"
+            fh = logging.handlers.RotatingFileHandler(
+                self.log_dir / f"{name}.log", maxBytes=10_000_000, backupCount=8
+            )
+            fh.setFormatter(fmt)
+            logger.addHandler(fh)
+        return logger
 
 
 class MetricLogger:

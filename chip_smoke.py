@@ -77,7 +77,22 @@
    its fp32 instantiation at the same shape; the build prints the spills of
    their sources and checks the SASS of every bf16 B12 instantiation for
    HGMMA.
-7. Prints a JSON line of the ported kernels, then the card's name and power
+7. Drives the WSI pipeline end to end as a user runs it, after the
+   CellViT-256 path: `cli.cell_detection.main([... "--device", "cuda",
+   "--enforce_amp", "--geojson", "process_wsi", ...])` on a synthetic
+   preprocessed slide that the script writes with the port's own tools (a
+   4 × 4 grid of 1024² PNG patches at overlap 64, rows of all five PNG
+   filter types, discs across the patches' borders, `metadata.yaml` by
+   `utils/yaml_lite.dump`) and a full-width CellViT-256 saved as a reference
+   `.pth`. It holds the compiled PNG unfilter (host C code) byte-equal to the
+   plain one and to the encoded image on every patch, checks the launches a
+   batch (B1 12, B2 2, B3 1, B4 1), that dedup removed cells and left some,
+   every centroid inside the slide and no two within 3 px, and that a second
+   `process_wsi` whose reader runs the plain unfilter writes the same
+   `cells.json`; it prints `timings.json`'s stages, patches/s of the whole
+   detection loop beside the device stage's, and host ms a batch of PNG
+   decoding, contours and assembly, and dedup.
+8. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero, without the last line, when no GPU is present or any phase
@@ -945,6 +960,225 @@ def conv_phase(infer, imgs: np.ndarray, kernels: dict, phase_launches: dict) -> 
     del xf, wf
 
 
+WSI_GRID, WSI_OVERLAP = 4, 64  # a 4 × 4 grid of 1024² patches, 64 px overlap
+
+
+def write_synthetic_slide(root, seed: int = 5):
+    """A preprocessed slide written with the port's own tools (`data/png.py`,
+    `utils/yaml_lite.py`): WSI_GRID² patches of TILE² cut at a distance of
+    TILE − WSI_OVERLAP from one image of dark discs on a light background
+    (the look of `synthetic.blob_tiles`), so that discs cross the patches'
+    borders and lie in two or four patches' overlaps. Each patch's rows use
+    the five PNG filter types in turn. Returns {patch name: its image}."""
+    from cellvit_tpu_torch.data.png import encode_png
+    from cellvit_tpu_torch.utils import yaml_lite
+
+    dist = TILE - WSI_OVERLAP
+    side = WSI_GRID * dist  # the slide; patches reach WSI_OVERLAP // 2 beyond it
+    rng = np.random.default_rng(seed)
+    img = np.full((side + WSI_OVERLAP, side + WSI_OVERLAP, 3), 191, np.uint8)
+    pad = WSI_OVERLAP // 2
+    for _ in range(600 * side * side // (TILE * TILE)):
+        cy, cx = rng.integers(12, side - 12, 2) + pad
+        r = int(rng.integers(4, 12))
+        yy, xx = np.mgrid[cy - r:cy + r + 1, cx - r:cx + r + 1]
+        img[cy - r:cy + r + 1, cx - r:cx + r + 1][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = \
+            int(rng.integers(25, 103))
+    (root / "patches").mkdir(parents=True)
+    patches, entries = {}, []
+    for row in range(WSI_GRID):
+        for col in range(WSI_GRID):
+            name = f"slide_{row}_{col}.png"
+            patch = img[row * dist:row * dist + TILE, col * dist:col * dist + TILE]
+            (root / "patches" / name).write_bytes(encode_png(patch, np.arange(TILE) % 5, level=1))
+            patches[name] = patch
+            entries.append({name: {"row": row, "col": col, "background_ratio": 0.0,
+                                   "intersected_labels": [], "label_ratios": [],
+                                   "metadata_path": f"./metadata/slide_{row}_{col}.yaml"}})
+    (root / "patch_metadata.json").write_text(json.dumps(entries, indent=2))
+    (root / "metadata.yaml").write_text(yaml_lite.dump({
+        "orig_n_tiles_cols": WSI_GRID, "orig_n_tiles_rows": WSI_GRID, "base_magnification": 40.0,
+        "downsampling": 1, "label_map": {"background": 0}, "magnification": 40.0, "base_mpp": 0.25,
+        "target_patch_mpp": 0.25, "patch_overlap": WSI_OVERLAP, "patch_size": TILE,
+        "patch_distance": dist, "stain_normalization": False,
+    }))
+    return patches
+
+
+def host_routines(infer, patches: dict) -> None:
+    """Host ms of the contour tracer and the cell assembly on the first batch
+    of the WSI path's slide: contours a tile inside the device statistics'
+    boxes (as `process_wsi` traces them) and, on tile 0, with each instance
+    compared over the whole map (the JAX package's way), which must give
+    the same contours; then a tile's whole assembly (contours and cell
+    dicts)."""
+    from cellvit_tpu_torch.inference import cell_detection as cd
+    from cellvit_tpu_torch.ops.instance_stats import contours_from_instance_map
+
+    imgs = np.stack(list(patches.values())[:BATCH]).astype(np.float32) / 255.0
+    inst, stats, tokens = infer._device_outputs(imgs, 40)
+    boxed, assembly, counts = [], [], []
+    for i in range(inst.shape[0]):
+        st = {k: v[i] for k, v in stats.items()}
+        t0 = time.perf_counter()
+        contours = contours_from_instance_map(inst[i], bboxes=st["bbox"])
+        boxed.append((time.perf_counter() - t0) * 1e3)
+        counts.append(len(contours))
+        t0 = time.perf_counter()
+        instances = cd.assemble_patch_instances(inst[i], st)
+        cd.assemble_patch_cells(instances, tokens[i], 0, 0, TILE, WSI_OVERLAP, 1, 16)
+        assembly.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            t0 = time.perf_counter()
+            whole = contours_from_instance_map(inst[0])
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            require(list(whole) == list(contours)
+                    and all(np.array_equal(whole[k], contours[k]) for k in whole),
+                    "the boxed contours differ from the whole-map ones")
+    print(f"  host routines, one batch of this slide ({counts} instances with a contour a tile): "
+          f"contours in boxes ms a tile {np.median(boxed):.1f} (median; {min(boxed):.1f}-"
+          f"{max(boxed):.1f}), whole-map compare on tile 0 {whole_ms:.1f} (the same contours); "
+          f"assembly (contours + cell dicts) ms a tile {np.median(assembly):.1f} (median; "
+          f"{min(assembly):.1f}-{max(assembly):.1f})")
+
+
+def wsi_phase(card: str) -> dict:
+    """Main path 4: the WSI pipeline end to end through the CLI, as a user
+    runs it: `cli.cell_detection.main` with `--device cuda --enforce_amp
+    --geojson process_wsi` on a synthetic preprocessed slide of WSI_GRID²
+    1024² patches (2 batches of 8) and a full-width CellViT-256 saved as a
+    reference `.pth` (random weights from seed 0 and the probe weights).
+    Checks the PNG unfilters, the launches a batch, dedup and the cells,
+    and that a second run whose reader uses the plain unfilter writes the
+    same cells.json. Returns the CLI run's launch counts."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from scipy.spatial import cKDTree
+
+    from cellvit_tpu_torch import _build
+    from cellvit_tpu_torch.cli import cell_detection as cli
+    from cellvit_tpu_torch.data import png
+    from cellvit_tpu_torch.data.wsi import WSI
+    from cellvit_tpu_torch.inference import cell_detection as cd
+    from cellvit_tpu_torch.models.cellvit import CellViT256
+    from cellvit_tpu_torch.synthetic import set_probe_weights
+
+    root = Path(tempfile.mkdtemp(prefix="cellvit_wsi_"))
+    try:
+        t0 = time.perf_counter()
+        patched = root / "slide"
+        patches = write_synthetic_slide(patched)
+        torch.manual_seed(0)
+        model = CellViT256(num_nuclei_classes=6, num_tissue_classes=19)
+        set_probe_weights(model)
+        ckpt = root / "cellvit_256.pth"
+        torch.save({"arch": "CellViT256", "model_state_dict": model.state_dict(),
+                    "config": {"data.num_nuclei_classes": 6, "data.num_tissue_classes": 19}}, ckpt)
+        del model
+        print(f"WSI path: slide of {len(patches)} patches ({WSI_GRID}×{WSI_GRID}, {TILE}², overlap "
+              f"{WSI_OVERLAP}) and checkpoint written in {time.perf_counter() - t0:.1f} s")
+
+        # the PNG unfilters on every patch: compiled (host C) against plain and the image
+        decode_ms = {True: 0.0, False: 0.0}
+        for name, want in patches.items():
+            data = (patched / "patches" / name).read_bytes()
+            shape, raw = png.read_png(data)
+            kinds = np.frombuffer(raw, np.uint8)[:: 1 + TILE * 3]
+            require(sorted(set(kinds.tolist())) == [0, 1, 2, 3, 4], f"{name}: filter types {kinds}")
+            got = {}
+            for native in (True, False):
+                t1 = time.perf_counter()
+                got[native] = png.decode_png(data, native=native)
+                decode_ms[native] += (time.perf_counter() - t1) * 1e3
+            require(np.array_equal(got[True], got[False]) and np.array_equal(got[True], want),
+                    f"{name}: the compiled PNG unfilter disagrees with the plain one or the image")
+        per_batch = {k: v * BATCH / len(patches) for k, v in decode_ms.items()}
+        print(f"  PNG decode (zlib + unfilter), one thread, ms a batch of {BATCH}: compiled "
+              f"{per_batch[True]:.1f}, plain {per_batch[False]:.1f}; byte-equal to each other and "
+              f"to the encoded image on all {len(patches)} patches (rows of all five filter types)")
+
+        before_dedup = []
+
+        class Recording(cd.dd.CellPostProcessor):
+            def __init__(self, cells, logger=None):
+                before_dedup.append(len(cells))
+                super().__init__(cells, logger)
+
+        original = cd.dd.CellPostProcessor
+        cd.dd.CellPostProcessor = Recording
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            infer = cli.main(["--model", str(ckpt), "--device", "cuda", "--enforce_amp", "--geojson",
+                              "--batch_size", str(BATCH), "--patch_size", str(TILE),
+                              "--overlap", str(WSI_OVERLAP), "process_wsi", "--wsi_path",
+                              str(root / "slide.svs"), "--patched_slide_path", str(patched)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            outdir = patched / "cell_detection"
+            cells = json.loads((outdir / "cells.json").read_text())
+            timings = json.loads((outdir / "timings.json").read_text())
+            stage_ms = infer.batch_stage_ms
+            # the same slide again, the reader on the plain unfilter
+            infer.native_png = False
+            wsi = WSI(name="slide", patient="slide", slide_path=root / "slide.svs",
+                      patched_slide_path=patched)
+            plain_dir = infer.process_wsi(wsi, subdir_name="plain_png", geojson=True,
+                                          patch_size=TILE, overlap=WSI_OVERLAP)
+            plain_cells = json.loads((plain_dir / "cells.json").read_text())
+            plain_timings = json.loads((plain_dir / "timings.json").read_text())
+        finally:
+            cd.dd.CellPostProcessor = original
+        host_routines(infer, patches)
+        del infer
+        torch.cuda.empty_cache()
+
+        n_batches = -(-len(patches) // BATCH)
+        want = {"flash_attention": 12, "connected_components": 2, "flood": 1, "propagate_min": 1}
+        print(f"  CLI run: {wall:.2f} s wall (model load included); launches {launches} "
+              f"(expected per batch {want}, {n_batches} batches)")
+        for kernel, n in launches.items():
+            require(n == want.get(kernel, 0) * n_batches, f"WSI path: {kernel}: {n} launches")
+        require(len(stage_ms) == n_batches, "WSI path: device stage times missing")
+        stages = timings["stages_s"]
+        n = timings["n_patches"]
+        device_s = sum(sum(st.values()) for st in stage_ms) / 1e3
+        print(f"  timings.json stages (s): {stages}; n_patches {n}")
+        print(f"  plain-unfilter run stages (s): {plain_timings['stages_s']}")
+        print(f"  patches/s on {card}: detection_loop {n / stages['detection_loop']:.3f}, device "
+              f"stage {n / device_s:.3f} (device events: forward + postproc + stats, "
+              f"{device_s * 1e3 / len(stage_ms):.2f} ms a batch over {len(stage_ms)} batches); "
+              f"plain-unfilter run's detection_loop "
+              f"{n / plain_timings['stages_s']['detection_loop']:.3f}")
+        print(f"  host ms a batch: PNG decode (one thread) compiled {per_batch[True]:.1f} / plain "
+              f"{per_batch[False]:.1f}; contours and assembly "
+              f"{stages['host_assembly'] * 1e3 / n_batches:.1f}; patch_load wait "
+              f"{stages['patch_load'] * 1e3 / n_batches:.1f}; dedup {stages['dedup'] * 1e3:.1f} ms "
+              f"a slide")
+        kept = cells["cells"]
+        print(f"  cells: {before_dedup[0]} before dedup, {len(kept)} after")
+        require(n == len(patches) and len(cells["processed_patches"]) == len(patches),
+                "WSI path: patches missing")
+        require(before_dedup[0] > len(kept) > 0, "WSI path: dedup removed nothing or no cell is left")
+        cen = np.asarray([c["centroid"] for c in kept], np.float64)
+        side = WSI_GRID * (TILE - WSI_OVERLAP)
+        require(np.isfinite(cen).all() and (cen >= 0).all() and (cen < side).all(),
+                "WSI path: a centroid lies outside the slide")
+        close = cKDTree(cen).query_pairs(3.0)
+        require(not close, f"WSI path: {len(close)} pairs of surviving centroids within 3 px")
+        for name in ("cells.geojson", "cell_detection.geojson", "cells.pt", "cell_detection.json"):
+            require((outdir / name).is_file(), f"WSI path: {name} missing")
+        require(plain_cells == cells, "WSI path: the plain-unfilter run wrote other cells")
+        print("  the plain-unfilter run wrote the same cells.json")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1359,6 +1593,12 @@ def main() -> int:
     print_times({k: kernels[k] for k in phase_launches})
     del model, infer
     torch.cuda.empty_cache()
+
+    # ---- main path 4: the WSI pipeline end to end, PNG patches to cells.json
+    t0 = time.perf_counter()
+    for name, n in wsi_phase(card).items():
+        launches[name] += n
+    print(f"WSI path: {time.perf_counter() - t0:.1f} s")
 
     # ---- main path 2: CellViT-SAM-H WSI tile inference, device stage
     model = random_sam_h(1, "cuda")

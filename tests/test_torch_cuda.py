@@ -709,3 +709,20 @@ def test_conv3x3_bf16_kernel_shapes_match_plain(cuda, c, f, h, w):
         want = conv_cm.conv3x3_cm_reference(x, wt, b, relu=block != 1, **kw)
         rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
         assert got.shape == want.shape and rel <= conv_cm.CONV_BF16_L2, (block, rel)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_native_unfilter_matches_plain(cuda, channels):
+    """The compiled PNG unfilter (host C code, `csrc/png_unfilter.cu`) is
+    byte-equal to the plain one and to the encoded image, with every filter
+    type on the rows (and each alone), at patch size and at tiny sizes."""
+    from cellvit_tpu_torch.data import png
+
+    rng = np.random.default_rng(channels)
+    for h, w in ((1, 1), (2, 3), (37, 129), (1024, 1024)):
+        img = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+        for filters in (0, 1, 2, 3, 4, rng.integers(0, 5, h)):
+            shape, raw = png.read_png(png.encode_png(img, filters))
+            native = png.unfilter_native(raw, shape)
+            np.testing.assert_array_equal(native, png.unfilter_plain(raw, shape))
+            np.testing.assert_array_equal(native, img)

@@ -220,12 +220,17 @@ def test_package_imports_no_jax():
 
 
 def test_package_sources_name_no_jax():
+    """No module of the port, nor `chip_smoke.py`, imports JAX, the JAX
+    package, or cv2, PIL or yaml (the GPU machine has none of them)."""
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|cellvit_tpu)(\.|\s|$)", re.MULTILINE)
-    offenders = [p.name for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())]
+        r"^\s*(import|from)\s+(jax|flax|optax|cellvit_tpu|cv2|PIL|yaml)(\.|\s|$)", re.MULTILINE)
+    sources = [*PACKAGE.rglob("*.py"), PACKAGE.parent / "chip_smoke.py"]
+    offenders = [p.name for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert pattern.search("from cellvit_tpu.ops import cc")
     assert not pattern.search("from cellvit_tpu_torch.ops import cc")
+    for name in ("import cv2", "from PIL import Image", "    import yaml"):
+        assert pattern.search(name), name
 
 
 def test_entry_points_need_a_gpu_unless_cpu(monkeypatch):
@@ -255,7 +260,8 @@ def test_check_wsi():
 def test_bindings_match_c_entry_points():
     """Every `_build.bind(source, name, sig)` in the package spells the
     argument list of the C entry point it binds: pointers (p), ints (i) and
-    floats (f), then the stream."""
+    floats (f), then the stream; every `_build.bind_host` spells the whole
+    list of a host entry, which takes no stream."""
     import ast
 
     protos = {}
@@ -263,18 +269,19 @@ def test_bindings_match_c_entry_points():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             params = [p.strip() for p in m.group(2).split(",")]
-            assert params[-1] == "void* stream", (src.name, m.group(1))
+            streamed = params[-1] == "void* stream"
             kinds = "".join("p" if "*" in p else {"int": "i", "float": "f"}[p.split()[0]]
-                            for p in params[:-1])
-            protos[(src.name, m.group(1))] = kinds
+                            for p in (params[:-1] if streamed else params))
+            protos[(src.name, m.group(1))] = (kinds, streamed)
     bound = []
     for py in PACKAGE.rglob("*.py"):
         for node in ast.walk(ast.parse(py.read_text())):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                    and node.func.attr == "bind"):
+                    and node.func.attr in ("bind", "bind_host")):
                 src, name, sig = (ast.literal_eval(a) for a in node.args)
                 bound.append(name)
-                assert protos[(src, name)] == sig, (src, name, sig, protos[(src, name)])
+                want = (sig, node.func.attr == "bind")
+                assert protos[(src, name)] == want, (src, name, want, protos[(src, name)])
     assert sorted(bound) == sorted(name for _, name in protos)
     from cellvit_tpu_torch import _build
 
