@@ -17,6 +17,7 @@ token graph.
 
 from __future__ import annotations
 
+import contextlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -154,7 +155,7 @@ class CellSegmentationInference:
         model_path: a reference `.pth` training checkpoint; or
         model / state_dict / run_conf: a built model, optionally its weights,
             and its run config (normalisation, class counts).
-        run_dir / checkpoint_name: a training run directory (not ported yet).
+        run_dir: a training run directory (not ported yet).
         batch_size: tiles per batch of `process_wsi`; the device stage takes
             the batch it is given.
         mixed_precision: compute in bf16 under `torch.autocast` with the
@@ -163,8 +164,9 @@ class CellSegmentationInference:
         max_instances_per_tile: capacity of the per-instance statistics.
         mesh: tile batches sharded over devices (not ported yet).
         logger: a python logger (default: INFO to stdout).
-        device: "cuda" (default; raises without a GPU) or "cpu". On CUDA the
-            patch reader uses the compiled PNG unfilter (`native_png`).
+        device: "cuda" (default; raises without a GPU), "cuda:N" or "cpu".
+            The device stage makes it the current device while it runs. On
+            CUDA the patch reader uses the compiled PNG unfilter (`native_png`).
     """
 
     def __init__(
@@ -174,7 +176,6 @@ class CellSegmentationInference:
         state_dict: Optional[Mapping[str, Any]] = None,
         run_conf: Optional[Mapping[str, Any]] = None,
         run_dir: Optional[Union[str, Path]] = None,
-        checkpoint_name: str = "latest_checkpoint",
         batch_size: int = 8,
         mixed_precision: bool = False,
         max_instances_per_tile: int = 2048,
@@ -237,6 +238,14 @@ class CellSegmentationInference:
         if int(meta["patch_overlap"]) != overlap:
             raise RuntimeError(f"patch overlap must be {overlap}")
 
+    def on_device(self):
+        """A context that makes `self.device` the current CUDA device (a no-op
+        on the CPU): the kernels launch on the current device, into the
+        current stream of their tensors' device."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     def autocast(self):
         """The mixed-precision context of the model's forward (off in fp32)."""
         return torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.mixed_precision)
@@ -245,7 +254,7 @@ class CellSegmentationInference:
     def forward_maps(self, x: torch.Tensor, retrieve_tokens: bool = False) -> Dict:
         """`models.fused.forward_maps` of the model on NHWC `x` (normalised,
         in `self.dtype`) under `autocast()`."""
-        with self.autocast():
+        with self.on_device(), self.autocast():
             return forward_maps(self.model, x, retrieve_tokens=retrieve_tokens)
 
     def _event(self) -> Optional[torch.cuda.Event]:
@@ -260,30 +269,31 @@ class CellSegmentationInference:
         """Queue the device stage for a (B, H, W, 3) [0, 1] batch without
         waiting for it: forward maps, instance maps and an argmax type map,
         relabelling and statistics."""
-        x = torch.from_numpy(np.ascontiguousarray((imgs - self.mean) / self.std, np.float32))
-        if self.device.type == "cuda":
-            x = x.pin_memory()
-        x = x.to(self.device, non_blocking=True).to(self.dtype)
-        ksize, object_size = (21, 10) if magnification == 40 else (11, 3)
-        events = [self._event()]
-        out = self.forward_maps(x, retrieve_tokens=True)
-        events.append(self._event())
-        inst, passes = instance_map_batch_maps(
-            out["np_prob"], out["hv0"], out["hv1"], object_size=object_size, ksize=ksize,
-            return_passes=True,
-        )
-        # softmax is monotone per pixel: argmax over the raw logits
-        type_map = out["type_map_cmajor"].argmax(dim=1).to(torch.int32)
-        events.append(self._event())
-        h, w = inst.shape[1], inst.shape[2]
-        inst = relabel_consecutive(inst, h * w // 2 + 2)
-        stats = instance_stats_batch(
-            inst, type_map, out["np_prob"], max_instances=self.max_instances,
-            num_classes=self.num_nuclei_classes,
-        )
-        events.append(self._event())
-        self.last_watershed_passes = passes
-        return inst, stats, out["tokens"], events
+        with self.on_device():
+            x = torch.from_numpy(np.ascontiguousarray((imgs - self.mean) / self.std, np.float32))
+            if self.device.type == "cuda":
+                x = x.pin_memory()
+            x = x.to(self.device, non_blocking=True).to(self.dtype)
+            ksize, object_size = (21, 10) if magnification == 40 else (11, 3)
+            events = [self._event()]
+            out = self.forward_maps(x, retrieve_tokens=True)
+            events.append(self._event())
+            inst, passes = instance_map_batch_maps(
+                out["np_prob"], out["hv0"], out["hv1"], object_size=object_size, ksize=ksize,
+                return_passes=True,
+            )
+            # softmax is monotone per pixel: argmax over the raw logits
+            type_map = out["type_map_cmajor"].argmax(dim=1).to(torch.int32)
+            events.append(self._event())
+            h, w = inst.shape[1], inst.shape[2]
+            inst = relabel_consecutive(inst, h * w // 2 + 2)
+            stats = instance_stats_batch(
+                inst, type_map, out["np_prob"], max_instances=self.max_instances,
+                num_classes=self.num_nuclei_classes,
+            )
+            events.append(self._event())
+            self.last_watershed_passes = passes
+            return inst, stats, out["tokens"], events
 
     def _fetch_device(self, handles: Tuple) -> Tuple[np.ndarray, Dict[str, np.ndarray], np.ndarray]:
         """Wait for a `_dispatch_device` result and copy it to the host."""

@@ -726,3 +726,31 @@ def test_png_native_unfilter_matches_plain(cuda, channels):
             native = png.unfilter_native(raw, shape)
             np.testing.assert_array_equal(native, png.unfilter_plain(raw, shape))
             np.testing.assert_array_equal(native, img)
+
+
+def test_inference_on_an_explicit_cuda_index(cuda):
+    """The WSI driver on `cuda:N` (what the CLI's `--gpu N` asks for) runs
+    its device stage on that card whichever device is current: cuda:0, and
+    the last card where there are several, with the same instance maps."""
+    from cellvit_tpu_torch.inference.cell_detection import CellSegmentationInference
+    from cellvit_tpu_torch.models.cellvit import CellViT
+    from cellvit_tpu_torch.synthetic import blob_tiles, set_probe_weights
+
+    torch.manual_seed(0)
+    model = CellViT(num_nuclei_classes=6, num_tissue_classes=19, embed_dim=128, depth=4,
+                    num_heads=2, extract_layers=(1, 2, 3, 4))
+    set_probe_weights(model)
+    imgs, _ = blob_tiles(batch=2, tile=512, seed=3)  # 1025 tokens: the flash route
+    maps = []
+    for index in sorted({0, torch.cuda.device_count() - 1}):
+        torch.cuda.set_device(0)
+        infer = CellSegmentationInference(model=model, device=f"cuda:{index}",
+                                          mixed_precision=True, max_instances_per_tile=512)
+        before = _build.LAUNCHES["flash_attention"]
+        inst, stats, tokens = infer._device_outputs(imgs, 40)
+        assert _build.LAUNCHES["flash_attention"] == before + 4
+        assert torch.cuda.current_device() == 0
+        assert next(infer.model.parameters()).device == torch.device("cuda", index)
+        assert inst.max() > 0 and np.isfinite(tokens).all()
+        maps.append(inst)
+    assert all((m == maps[0]).all() for m in maps)

@@ -451,7 +451,21 @@ def _models():
 
 
 @pytest.fixture(scope="module")
-def runs(slide, tmp_path_factory):
+def ckpt(tmp_path_factory):
+    """The tiny CellViT of `_models` saved as a reference-format `.pth`."""
+    model = _models()[0]
+    norm = RUN_CONF["transformations"]["normalize"]
+    path = tmp_path_factory.mktemp("ckpt") / "cellvit_tiny.pth"
+    torch.save({"arch": "CellViT", "model_state_dict": model.state_dict(), "config": {
+        "data.num_nuclei_classes": 6, "data.num_tissue_classes": 19, "model.embed_dim": 64,
+        "model.depth": 4, "model.num_heads": 2, "model.extract_layers": [1, 2, 3, 4],
+        "transformations.normalize.mean": norm["mean"],
+        "transformations.normalize.std": norm["std"]}}, path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def runs(slide, ckpt):
     """`process_wsi` of JAX, of the port and of the port's CLI on the slide
     (fp32, batches of 4, with GeoJSON); the port's cell list before dedup."""
     from cellvit_tpu.data.wsi import WSI as JaxWSI
@@ -498,12 +512,6 @@ def runs(slide, tmp_path_factory):
     finally:
         port_cd.dd.CellPostProcessor = original
 
-    ckpt = tmp_path_factory.mktemp("ckpt") / "cellvit_tiny.pth"
-    torch.save({"arch": "CellViT", "model_state_dict": model.state_dict(), "config": {
-        "data.num_nuclei_classes": 6, "data.num_tissue_classes": 19, "model.embed_dim": 64,
-        "model.depth": 4, "model.num_heads": 2, "model.extract_layers": [1, 2, 3, 4],
-        "transformations.normalize.mean": norm["mean"],
-        "transformations.normalize.std": norm["std"]}}, ckpt)
     cli.main(["--model", str(ckpt), "--device", "cpu", "--patch_size", "256", "--batch_size", "4",
               "--outdir_subdir", "cli", "--geojson", "process_wsi", "--wsi_path", str(slide_path),
               "--patched_slide_path", str(patched)])
@@ -582,6 +590,55 @@ def test_cli_matches_process_wsi(runs):
     _, port_out, cli_out, _ = runs
     assert _cells(cli_out) == _cells(port_out)
     assert (cli_out / "cells.geojson").exists() and (cli_out / "timings.json").exists()
+
+
+@pytest.mark.parametrize("filelist", [True, False])
+def test_cli_process_dataset_matches_process_wsi(runs, slide, ckpt, tmp_path, filelist):
+    """`process_dataset` finds the slide by the filelist's `Filename` column
+    (a row of another extension and an empty row dropped) or by a recursive
+    glob, and writes the cells of `process_wsi`; `--profile` writes the
+    torch trace."""
+    from cellvit_tpu_torch.cli import cell_detection as cli
+
+    _, port_out, _, _ = runs
+    slide_path, patched = slide
+    sub = "dataset_filelist" if filelist else "dataset_glob"
+    extra = []
+    if filelist:
+        rows = f"Filename,label\n{slide_path.name},1\nother.svs,0\n,2\n"
+        (tmp_path / "files.csv").write_text(rows)
+        extra = ["--filelist", str(tmp_path / "files.csv")]
+    cli.main(["--model", str(ckpt), "--device", "cpu", "--patch_size", "256", "--batch_size", "4",
+              "--outdir_subdir", sub, "--profile", str(tmp_path / "prof"), "process_dataset",
+              "--wsi_paths", str(slide_path.parent), "--patch_dataset_path", str(patched.parent),
+              "--wsi_extension", "tiff", *extra])
+    assert _cells(patched / "cell_detection" / sub) == _cells(port_out)
+    assert json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+
+
+@pytest.mark.parametrize("argv,device", [([], "cuda:0"), (["--gpu", "1"], "cuda:1"),
+                                         (["--gpu", "1", "--device", "cpu"], "cpu")])
+def test_cli_device_selection(monkeypatch, tmp_path, argv, device):
+    """`--device cuda` (the default) with `--gpu N` hands `cuda:N` to the
+    driver, which makes it the current device while its kernels run
+    (`tests/test_torch_cuda.py` runs that part on the card)."""
+    from cellvit_tpu_torch.cli import cell_detection as cli
+    from cellvit_tpu_torch.inference import cell_detection as port_cd
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def driver(**kwargs):
+        seen.update(kwargs)
+        raise Built
+
+    monkeypatch.setattr(port_cd, "CellSegmentationInference", driver)
+    with pytest.raises(Built):
+        cli.main(["--model", str(tmp_path / "ckpt.pth"), *argv, "process_wsi",
+                  "--wsi_path", "slide.svs", "--patched_slide_path", str(tmp_path)])
+    assert seen["device"] == device and seen["model_path"] == tmp_path / "ckpt.pth"
 
 
 def test_dedup_matches_jax_on_a_run_and_planted_duplicates(runs):
