@@ -6,7 +6,8 @@ state dict loads as it is. `state_dict_from_flax` is this package's own copy
 of the flax → torch key mapping and weight transposes
 (`_flax_path_to_torch_key`, `_INVERSE`, `_inverse_patch`) for CellViT with a
 histo or SAM encoder; it takes nested dicts of numpy arrays, so nothing of
-JAX is needed.
+JAX is needed. `load_dino_encoder` / `load_sam_encoder` read a pretrained
+encoder's `.pth` for `load_encoder_into`.
 """
 
 from __future__ import annotations
@@ -219,3 +220,47 @@ def load_checkpoint(
     state_dict = ckpt["model_state_dict"]
     load_state_dict_into(model, state_dict)
     return model, state_dict, run_conf
+
+
+# ------------------------------------------------------- pretrained encoders
+
+#: encoder keys a pretrained checkpoint may fill (JAX `_map_encoder_key`)
+_ENCODER_KEY = re.compile(r"(cls_token|pos_embed|patch_embed\.proj\.(weight|bias)|norm\.(weight|bias)"
+                          r"|head\.(weight|bias)|blocks\.\d+\..+|neck\.[0-3]\.(weight|bias))$")
+
+
+def convert_encoder_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A pretrained encoder's state dict (a DINO teacher, SAM) → the
+    encoder's own keys (no `encoder.` prefix). The `module.`, `backbone.`
+    and `image_encoder.` prefixes are stripped and keys no encoder has (DINO
+    heads, SAM's prompt encoder and mask decoder) dropped, like the
+    reference's `load_state_dict(strict=False)`."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in state_dict.items():
+        key = key.replace("module.", "").replace("backbone.", "")
+        if key.startswith("image_encoder."):
+            key = key[len("image_encoder."):]
+        if _ENCODER_KEY.match(key):
+            out[key] = torch.as_tensor(np.asarray(val, np.float32) if not torch.is_tensor(val)
+                                       else val.float())
+    return out
+
+
+def load_dino_encoder(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A HIPT/DINO ViT-256 checkpoint (its `teacher` entry when present;
+    reference cellvit.py:483-493) → encoder state dict."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    return convert_encoder_state_dict(ckpt["teacher"] if "teacher" in ckpt else ckpt)
+
+
+def load_sam_encoder(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A SAM checkpoint (reference cellvit.py:574-584) → encoder state dict."""
+    return convert_encoder_state_dict(torch.load(str(path), map_location="cpu", weights_only=False))
+
+
+def load_encoder_into(model: CellViT, encoder_state: Mapping[str, torch.Tensor]) -> None:
+    """Copy an encoder state dict into `model.encoder`; keys it lacks are
+    ignored, a shape that differs raises."""
+    own = model.encoder.state_dict()
+    known = {k: v for k, v in encoder_state.items() if k in own}
+    model.encoder.load_state_dict(known, strict=False)

@@ -5,9 +5,12 @@ DINO/HIPT ViT-256: learned 1-D positional embedding with a CLS token,
 bicubic pos-emb interpolation (with the reference's +0.1 scale fudge) for
 other input sizes, and per-block skip extraction. Attention over 1024 or more
 tokens takes the flash route (`ops/attention.py`: the hand kernels B1 and,
-for its backward, B8 on CUDA); shorter sequences, and training with attention
-dropout, take the einsum route. `train()` turns on the token, attention and
-MLP dropout and the drop-path, each drawing from its module's generator
+for its backward, B8 on CUDA), as in the JAX package; on the card a 256²
+image's 257 tokens take it too, in bf16 at the head widths the kernels are
+built for. Shorter sequences, and training with attention dropout (the
+flash kernels never form the probabilities to drop from), take the einsum
+route. `train()` turns on the token, attention and MLP dropout and the
+drop-path, each drawing from its module's generator
 (`layers.use_generator`).
 """
 
@@ -22,9 +25,11 @@ from torch import nn
 
 from cellvit_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm, Mlp, PatchEmbed,
                                              resize_matrix_1d)
-from cellvit_tpu_torch.ops.attention import flash_attention
+from cellvit_tpu_torch.ops.attention import FLASH_V_DIMS, flash_attention
 
 FLASH_MIN_TOKENS = 1024
+#: on the card: a 256² image's CLS + 16² tokens
+FLASH_MIN_TOKENS_CUDA = 257
 
 
 class Attention(nn.Module):
@@ -46,8 +51,7 @@ class Attention(nn.Module):
         hd = c // h
         qkv = self.qkv(x).reshape(b, n, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, hd)
-        # the flash kernels never form the probabilities to drop from
-        if n >= FLASH_MIN_TOKENS and (not self.training or self.attn_drop.p == 0.0):
+        if self._flash_route(q):
             out = flash_attention(q, k, v)
         else:  # fp32 logits and softmax, as the JAX package's einsum route, autocast or not
             with torch.autocast(x.device.type, enabled=False):
@@ -55,6 +59,16 @@ class Attention(nn.Module):
                 attn = torch.softmax(attn, dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", self.attn_drop(attn).to(x.dtype), v)
         return self.proj_drop(self.proj(out.reshape(b, n, c)))
+
+    def _flash_route(self, q: torch.Tensor) -> bool:
+        """Whether attention on (B, N, H, hd) `q` takes the flash kernels."""
+        if self.training and self.attn_drop.p > 0.0:
+            return False
+        n = q.shape[1]
+        if n >= FLASH_MIN_TOKENS:
+            return True
+        return (q.is_cuda and n >= FLASH_MIN_TOKENS_CUDA and q.dtype == torch.bfloat16
+                and q.shape[-1] in FLASH_V_DIMS)
 
 
 class Block(nn.Module):

@@ -114,6 +114,15 @@ def _line8(canvas: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> None:
             x0 += 1
 
 
+def draw_closed_polyline(canvas: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Set the 8-connected lines joining consecutive (x, y) points, the
+    last back to the first, to 1 (`cv2.drawContours` at thickness 1)."""
+    pts = np.asarray(pts, np.int64).reshape(-1, 2)
+    for (x0, y0), (x1, y1) in zip(np.roll(pts, 1, axis=0).tolist(), pts.tolist()):
+        _line8(canvas, x0, y0, x1, y1)
+    return canvas
+
+
 def fill_poly(canvas: np.ndarray, pts: np.ndarray) -> np.ndarray:
     """`cv2.fillPoly(canvas, [pts], 1)` for integer points and 8-connected
     lines: every edge drawn as a line, then a scanline fill as OpenCV's

@@ -1,12 +1,14 @@
 """Synthetic workload: H&E-like blob tiles (the JAX package's
 `bench.py:119-128`), training batches with HoVer-Net targets built from
-them, and probe weights that make a randomly initialised CellViT's nucleus
-and HV maps follow those tiles, so that the postprocessing has real nuclei
-to segment."""
+them, a dataset in PanNuke's on-disk layout for the training CLI, and probe
+weights that make a randomly initialised CellViT's nucleus and HV maps
+follow those tiles, so that the postprocessing has real nuclei to
+segment."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from pathlib import Path
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,55 @@ def training_batch(batch: int = 4, tile: int = 1024, seed: int = 0,
         "tissue_types": [names[i] for i in rng.integers(0, len(names), batch)],
         "names": [f"blob_{seed}_{b}" for b in range(batch)],
     }
+
+
+def write_pannuke_folds(root: Path, folds: Mapping[int, int], dataset_config: Dict,
+                        weight_config: Dict, tile: int = 256, seed: int = 13) -> None:
+    """A dataset in PanNuke's layout, written with the port's own tools: per
+    fold (`folds`: fold → number of patches) `images/*.png` (`tile`² RGB,
+    `encode_png`), `labels/*.npy` ({inst_map, type_map}), `types.csv` (the
+    tissue names of `dataset_config` in turn) and `cell_count.csv`; the two
+    configs as `dataset_config.yaml` and `weight_config.yaml`
+    (`yaml_lite.dump`). Nuclei as `blob_tiles` draws them: dark discs of
+    radius 4-12 at 600 a 1024² area, each of a type in 1-5 and claiming
+    only free pixels, on a light background with ±8 grey levels of noise."""
+    from cellvit_tpu_torch.data.png import encode_png
+    from cellvit_tpu_torch.utils import yaml_lite
+
+    root = Path(root)
+    tissues = list(dataset_config["tissue_types"])
+    nuclei = [n for n, i in sorted(dataset_config["nuclei_types"].items(), key=lambda kv: kv[1]) if i]
+    yy, xx = np.mgrid[0:tile, 0:tile]
+    rng = np.random.default_rng(seed)
+    k = 0
+    for fold, n in folds.items():
+        d = root / f"fold{fold}"
+        (d / "images").mkdir(parents=True)
+        (d / "labels").mkdir()
+        types_rows, count_rows = ["img,type"], ["Image," + ",".join(nuclei)]
+        for i in range(n):
+            img = np.full((tile, tile, 3), 191, np.int32) + rng.integers(-8, 9, (tile, tile, 3))
+            inst = np.zeros((tile, tile), np.int32)
+            typ = np.zeros((tile, tile), np.int32)
+            for j in range(600 * tile * tile // 1024**2):
+                cy, cx = rng.integers(10, tile - 10, 2)
+                r = int(rng.integers(4, 12))
+                disc = ((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r) & (inst == 0)
+                img[disc] = int(rng.integers(25, 103))
+                inst[disc] = j + 1
+                typ[disc] = int(rng.integers(1, 6))
+            name = f"{fold}_{i}"
+            (d / "images" / f"{name}.png").write_bytes(encode_png(img.clip(0, 255).astype(np.uint8)))
+            np.save(d / "labels" / f"{name}.npy",
+                    np.array({"inst_map": inst, "type_map": typ}, dtype=object), allow_pickle=True)
+            types_rows.append(f"{name}.png,{tissues[k % len(tissues)]}")
+            counts = [len(np.unique(inst[typ == c])) for c in range(1, 6)]
+            count_rows.append(f"{name}.png," + ",".join(map(str, counts)))
+            k += 1
+        (d / "types.csv").write_text("\n".join(types_rows) + "\n")
+        (d / "cell_count.csv").write_text("\n".join(count_rows) + "\n")
+    (root / "dataset_config.yaml").write_text(yaml_lite.dump(dataset_config))
+    (root / "weight_config.yaml").write_text(yaml_lite.dump(weight_config))
 
 
 def cellvit256_trainer(seed: int = 2, device: str = "cuda"):

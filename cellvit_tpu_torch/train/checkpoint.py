@@ -2,8 +2,10 @@
 of `cellvit_tpu/train/checkpoint.py`; keys of the reference
 `base_trainer.py:229-251` as `export_reference_checkpoint` writes them).
 
-`model_state_dict` holds the reference key names, so
-`models/checkpoint_io.load_checkpoint` rebuilds the model from the file;
+`model_state_dict` holds the reference key names and `config` the flattened
+run config (the trainer's `run_config`, as the JAX package's
+`export_reference_checkpoint` writes it) with the model's own keys over it,
+so `models/checkpoint_io.load_checkpoint` rebuilds the model from the file;
 `optimizer_state_dict` holds the optimizer state and the global step, so
 `load_checkpoint` resumes training where it stopped.
 """
@@ -44,7 +46,8 @@ def save_checkpoint(path: Path, trainer, epoch: int, best_metric: Optional[float
     """Write the trainer's model, optimizer state and step to `path`."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    arch, config = model_config(trainer.model)
+    arch, own = model_config(trainer.model)
+    config = {**trainer.run_config, **own}
     cpu = torch.device("cpu")
     ckpt = {
         "arch": arch,

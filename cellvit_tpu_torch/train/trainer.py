@@ -13,7 +13,10 @@ through the optimizer, whose step count is global, and their updates are
 masked. Mixed precision is `torch.autocast(bfloat16)` around the forward.
 Validation computes dice/jaccard/tissue accuracy on the device and bPQ
 through the port's HV postprocessing (B2-B4 on the card) and the host PQ
-pairing.
+pairing; with `log_images` it writes one example panel
+(`utils/plotting.py`) under `log_dir/examples/`. `train_epoch` keeps, in
+`loader_wait_s`, the seconds each step waited for its batch from the
+loader (the host's augmentations and targets).
 """
 
 from __future__ import annotations
@@ -93,8 +96,14 @@ class CellViTTrainer:
         logger=None,
         device: Optional[Union[str, torch.device]] = None,
         mixed_precision: bool = False,
+        log_dir: Optional[Path] = None,
+        run_config: Optional[Dict] = None,
     ) -> None:
         self.device = resolve_device(device)
+        self.log_dir = Path(log_dir) if log_dir is not None else None
+        #: the flattened run config that checkpoints carry
+        self.run_config = dict(run_config or {})
+        self.loader_wait_s: List[float] = []
         self.model = model.to(device=self.device, dtype=torch.float32)
         self.loss_fn_dict = loss_fn_dict
         self.num_classes = num_classes
@@ -233,7 +242,14 @@ class CellViTTrainer:
     def train_epoch(self, loader, epoch: int, unfreeze_epoch: int = 0) -> Dict[str, float]:
         freeze = epoch < unfreeze_epoch
         meters: Dict[str, AverageMeter] = {}
-        for raw in loader:
+        self.loader_wait_s = []
+        batches = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            raw = next(batches, None)
+            if raw is None:
+                break
+            self.loader_wait_s.append(time.perf_counter() - t0)
             batch = self.to_device(prepare_batch(raw, self.tissue_types))
             for k, v in self._host(self.train_step(batch, freeze)).items():
                 meters.setdefault(k, AverageMeter(k)).update(v)
@@ -242,10 +258,11 @@ class CellViTTrainer:
             self.metric_logger.log({f"Train/{k}": v for k, v in scalars.items()}, step=epoch)
         return scalars
 
-    def validation_epoch(self, loader, epoch: int, compute_pq: bool = True
-                         ) -> Tuple[Dict[str, float], float]:
+    def validation_epoch(self, loader, epoch: int, compute_pq: bool = True,
+                         log_images: bool = False) -> Tuple[Dict[str, float], float]:
         meters: Dict[str, AverageMeter] = {}
         pq_scores: List[float] = []
+        plotted = not log_images
         for raw in loader:
             batch = prepare_batch(raw, self.tissue_types)
             inst_gt = batch.pop("instance_map")
@@ -254,12 +271,33 @@ class CellViTTrainer:
                 meters.setdefault(k, AverageMeter(k)).update(v)
             if compute_pq:
                 pq_scores.extend(self._batch_pq(preds, inst_gt))
+            if not plotted and self.log_dir is not None:
+                self._plot_examples(batch, preds, inst_gt, epoch)
+                plotted = True
         scalars = {k: m.avg for k, m in meters.items()}
         mean_pq = float(np.mean(pq_scores)) if pq_scores else 0.0
         scalars["bPQ"] = mean_pq
         if self.metric_logger:
             self.metric_logger.log({f"Validation/{k}": v for k, v in scalars.items()}, step=epoch)
         return scalars, mean_pq
+
+    def _plot_examples(self, batch: Dict, preds: Dict, inst_gt: np.ndarray, epoch: int) -> Path:
+        """Write a validation example panel (reference
+        trainer_cellvit.py:842-1029); returns its path."""
+        from cellvit_tpu_torch.utils.plotting import generate_example_image
+
+        ksize, object_size = (21, 10) if self.magnification == 40 else (11, 3)
+        nb = preds["nuclei_binary_map"]
+        inst_pred = instance_map_batch(nb[..., 1], preds["hv_map"], object_size=object_size,
+                                       ksize=ksize).cpu().numpy()
+        outfile = self.log_dir / "examples" / f"epoch_{epoch:03d}.png"
+        generate_example_image(
+            np.asarray(batch["image"]), inst_pred, np.asarray(inst_gt),
+            nb.argmax(-1).cpu().numpy(), np.asarray(batch["nuclei_binary_map"]),
+            hv_pred=preds["hv_map"].cpu().numpy(), hv_gt=np.asarray(batch["hv_map"]),
+            outfile=outfile,
+        )
+        return outfile
 
     def _batch_pq(self, preds: Dict, inst_gt: np.ndarray) -> List[float]:
         """Binary PQ per image: device HV postproc → host pairing."""

@@ -1,7 +1,7 @@
-"""Logging (the offline part of `cellvit_tpu/utils/logger.py`): `Logger`
-builds a python logger (stdout and an optional rotating file);
-`MetricLogger` writes JSON lines to the run directory; `AverageMeter` keeps
-a running mean."""
+"""Logging (port of `cellvit_tpu/utils/logger.py`): `Logger` builds a python
+logger (stdout and an optional rotating file); `MetricLogger` writes JSON
+lines to the run directory, and forwards to wandb when asked and wandb is
+there; `AverageMeter` keeps a running mean."""
 
 from __future__ import annotations
 
@@ -56,20 +56,60 @@ class Logger:
 
 
 class MetricLogger:
-    """Scalar/series logging as JSON lines (`metrics.jsonl`) in `run_dir`."""
+    """Scalar/series logging: JSON lines (`metrics.jsonl`) in `run_dir`, and
+    wandb when `mode` is not "offline" and wandb imports and starts; else it
+    warns and keeps the JSON lines alone."""
 
-    def __init__(self, run_dir: Path) -> None:
+    def __init__(
+        self,
+        run_dir: Path,
+        project: Optional[str] = None,
+        run_name: Optional[str] = None,
+        mode: str = "offline",
+        config: Optional[Dict] = None,
+        wandb_id: Optional[str] = None,
+    ) -> None:
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self._f = open(self.run_dir / "metrics.jsonl", "a")
+        self.wandb_run = None
+        self.wandb_id = wandb_id
+        if mode != "offline":
+            try:
+                import wandb
+
+                self.wandb_run = wandb.init(
+                    project=project, name=run_name, mode=mode, config=config,
+                    id=wandb_id, resume="must" if wandb_id else None,
+                )
+                self.wandb_id = self.wandb_run.id
+            except Exception as e:  # noqa: BLE001 — wandb is optional
+                # not just ImportError: an unauthenticated or offline wandb
+                # raises at init; the JSON lines go on alone
+                import warnings
+
+                warnings.warn(f"wandb disabled ({type(e).__name__}: {e})")
 
     def log(self, metrics: Dict, step: Optional[int] = None) -> None:
         record = {"step": step, "ts": time.time(), **_to_plain(metrics)}
         self._f.write(json.dumps(record) + "\n")
         self._f.flush()
+        if self.wandb_run is not None:
+            self.wandb_run.log(metrics, step=step)
+
+    def summary(self, key: str, value) -> None:
+        """Set `key` in the run's `summary.json` (and wandb's summary)."""
+        path = self.run_dir / "summary.json"
+        data = json.loads(path.read_text()) if path.exists() else {}
+        data[key] = _to_plain(value)
+        path.write_text(json.dumps(data, indent=2))
+        if self.wandb_run is not None:
+            self.wandb_run.summary[key] = value
 
     def close(self) -> None:
         self._f.close()
+        if self.wandb_run is not None:
+            self.wandb_run.finish()
 
 
 def _to_plain(x):

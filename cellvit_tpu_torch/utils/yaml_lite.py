@@ -1,19 +1,26 @@
 """A reader (and a small writer) for the subset of YAML that `yaml.safe_dump`
-writes for a preprocessed slide's `metadata.yaml`, without PyYAML.
+writes (a preprocessed slide's `metadata.yaml`, a run's `config.yaml`) and
+that the files under `configs/` use, without PyYAML.
 
 `load` reads:
 - block mappings and block sequences, nested by indentation (a sequence may
   sit at its key's indentation, as safe_dump writes it), and sequence items
   that open a mapping or a sequence on their line (`- key: value`, `- - x`);
-- the empty flow collections `[]` and `{}`;
+- comments: whole lines and the rest of a line from a `#` that follows
+  whitespace outside quotes;
+- flow sequences and flow mappings of scalars (`[0.85, 0.95]`, `{p: 0.5}`,
+  `[]`, `{}`);
+- keys in single or double quotes (`"Adrenal_gland": 0`; the escapes `\\`,
+  `\"`, `\n` and `\t`);
 - scalars resolved as YAML 1.1's core schema resolves them: decimal ints,
   floats (`1.0e-05`, `.inf`, `-.inf`, `.nan`), `null`/`~`/empty, booleans
   (`true`/`false`, `yes`/`no`, `on`/`off` in their three spellings), single
   quoted strings (with the `''` escape) and plain strings.
 
-Anything else (double-quoted or multi-line scalars, anchors, tags, octal,
-hexadecimal or sexagesimal numbers, dates, several documents) raises
-`YAMLError`. `dump` writes the same subset: sorted keys, block style.
+Anything else (double-quoted values, nested flow collections, multi-line
+scalars, anchors, tags, octal, hexadecimal or sexagesimal numbers, dates,
+several documents) raises `YAMLError`. `dump` writes the block subset:
+sorted keys, block style.
 """
 
 from __future__ import annotations
@@ -70,18 +77,77 @@ def _scalar(text: str) -> Any:
     return text
 
 
+def _flow_items(body: str) -> List[str]:
+    """The comma-separated items of a flow collection's body, split outside
+    quotes; nested collections raise."""
+    items, start, quote = [], 0, None
+    for i, ch in enumerate(body):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and not body[start:i].strip():
+            quote = ch
+        elif ch in "[]{}":
+            raise YAMLError(f"nested flow collections are not supported: {body!r}")
+        elif ch == ",":
+            items.append(body[start:i].strip())
+            start = i + 1
+    items.append(body[start:].strip())
+    if quote or any(not item for item in items):
+        raise YAMLError(f"bad flow collection: {body!r}")
+    return items
+
+
 def _value(text: str) -> Any:
-    """An inline value: an empty flow collection or a scalar."""
-    if text in ("[]", "{}"):
-        return [] if text == "[]" else {}
+    """An inline value: a flow collection of scalars or a scalar."""
     if text.startswith(("[", "{")):
-        raise YAMLError(f"flow collections other than [] and {{}} are not supported: {text!r}")
+        close = "]" if text[0] == "[" else "}"
+        if not text.endswith(close):
+            raise YAMLError(f"unterminated flow collection: {text!r}")
+        body = text[1:-1].strip()
+        items = _flow_items(body) if body else []
+        if close == "]":
+            return [_scalar(item) for item in items]
+        out = {}
+        for item in items:
+            key, rest = _split_key(item)
+            if key in out:
+                raise YAMLError(f"duplicate key {key!r}")
+            out[key] = _scalar(rest) if rest is not None else None
+        return out
     return _scalar(text)
+
+
+_ESCAPES = {"\\": "\\", '"': '"', "n": "\n", "t": "\t"}
+
+
+def _double_quoted_key(text: str) -> Tuple[str, str]:
+    """A double-quoted key at the start of `text` → (key, the rest)."""
+    out, i = [], 1
+    while i < len(text):
+        ch = text[i]
+        if ch == '"':
+            return "".join(out), text[i + 1:]
+        if ch == "\\":
+            if text[i + 1:i + 2] not in _ESCAPES:
+                raise YAMLError(f"unsupported escape in {text!r}")
+            out.append(_ESCAPES[text[i + 1]])
+            i += 2
+            continue
+        out.append(ch)
+        i += 1
+    raise YAMLError(f"unterminated quoted key: {text!r}")
 
 
 def _split_key(text: str) -> Tuple[Any, Any]:
     """'key: value' → (key, value text or None when the line ends the key);
     raises when the text is not a mapping entry."""
+    if text.startswith('"'):
+        key, rest = _double_quoted_key(text)
+        if not (rest == ":" or rest.startswith(": ")):
+            raise YAMLError(f"not a mapping entry: {text!r}")
+        rest = rest[1:].strip()
+        return key, (rest if rest else None)
     if text.startswith("'"):
         end = 1
         while True:
@@ -113,13 +179,36 @@ def _is_entry(text: str) -> bool:
     return True
 
 
+def _strip_comment(line: str) -> str:
+    """The line without a trailing comment: from a `#` at the start or after
+    whitespace, outside quotes. A quote opens a quoted scalar only where a
+    token starts."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote == "'":
+            if ch == "'":
+                quote = None
+        elif quote == '"':
+            if ch == "\\":
+                quote = '"\\'
+            elif ch == '"':
+                quote = None
+        elif quote == '"\\':
+            quote = '"'
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " [{,"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
 class _Parser:
     def __init__(self, text: str) -> None:
         self.lines: List[Tuple[int, str]] = []
         for raw in text.splitlines():
             if "\t" in raw[: len(raw) - len(raw.lstrip())]:
                 raise YAMLError("tabs in indentation")
-            body = raw.rstrip()
+            body = _strip_comment(raw).rstrip()
             if not body.strip() or body.lstrip().startswith("#"):
                 continue
             if body in ("---", "..."):

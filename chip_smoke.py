@@ -92,7 +92,27 @@
    `cells.json`; it prints `timings.json`'s stages, patches/s of the whole
    detection loop beside the device stage's, and host ms a batch of PNG
    decoding, contours and assembly, and dedup.
-8. Prints a JSON line of the ported kernels, then the card's name and power
+8. Drives the training CLI end to end as a user runs it, after the training
+   path: first B1 and B8 against their plain versions at a 256² batch's
+   attention shape (16, 257, 6, 64), B1 beside the einsum route; then
+   `cli.run_cellvit.main(["--config", ...])` on the card with
+   `configs/examples/train_cellvit.yaml` at its own settings but for the
+   paths, `epochs: 2`, `unfreeze_epoch: 1` and no pretrained encoder, on a
+   synthetic PanNuke-layout dataset (`synthetic.write_pannuke_folds`: folds
+   of 48 / 16 / 16 256² PNG patches, ≈37 discs a patch, the repo's PanNuke
+   configs). It checks the run directory (config, two epochs of finite
+   metrics, both checkpoints, finite evaluation metrics), the launches of
+   every step, validation epoch and evaluation batch, and the evaluation's
+   first instance maps against the same postprocessing with B2-B4's plain
+   versions on the card, pixel for pixel; also with the probe weights,
+   whose maps have nuclei. It prints the step ms (frozen, unfrozen; CUDA
+   events and wall), images/s, the loader's wait a step and its samples/s
+   beside what the steps consume, a `torch.profiler` breakdown of one
+   step, the peak memory and the evaluation's patches/s, writes one
+   validation panel (`_plot_examples`) and decodes it, and runs `--sweep` on
+   `train_cellvit_sweep.yaml` cut to a 2-run grid at one epoch, unfrozen
+   (B1 and B8 12 a step). Both runs' launches join the kernels line.
+9. Prints a JSON line of the ported kernels, then the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
 Exits non-zero, without the last line, when no GPU is present or any phase
@@ -1179,6 +1199,421 @@ def wsi_phase(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+TRAIN_CLI_FOLDS = {0: 48, 1: 16, 2: 16}  # PanNuke-layout folds: train, validation, test
+TRAIN_CLI_TILE = 256
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """Route B2-B4's wrappers to their plain versions, on the card, for as
+    long as the context lasts: the HV postprocessing then runs the same
+    filters on the card with the plain scans."""
+    from cellvit_tpu_torch.ops import cc_cuda
+
+    def fill_holes_plain(mask, n_outer=2):
+        bg = ~mask
+        return mask | (bg & ~cc_cuda.flood_plain(cc_cuda.border_seed(mask), bg, n_outer))
+
+    swaps = [("connected_components_cuda", cc_cuda.connected_components_plain),
+             ("propagate_min_cuda", cc_cuda.propagate_min_plain),
+             ("fill_holes_cuda", fill_holes_plain)]
+    saved = [(name, getattr(cc_cuda, name)) for name, _ in swaps]
+    try:
+        for name, fn in swaps:
+            setattr(cc_cuda, name, fn)
+        yield
+    finally:
+        for name, fn in saved:
+            setattr(cc_cuda, name, fn)
+
+
+def against_plain_scans(label: str, first_batch: dict) -> None:
+    """An evaluation's first batch: its instance maps (B2-B4) against the
+    same postprocessing of the same maps on the card with the plain scans,
+    pixel for pixel; the plain run must launch no kernel."""
+    from cellvit_tpu_torch import _build
+    from cellvit_tpu_torch.ops.hv_postproc import instance_map_batch_maps
+
+    fb = first_batch
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with plain_scans():
+        plain = instance_map_batch_maps(fb["np_prob"], fb["hv0"], fb["hv1"], object_size=10, ksize=21)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    got = fb["inst"]
+    print(f"  {label} batch 0 ({tuple(got.shape)}): instances a patch "
+          f"{[int(m.max()) for m in got]}; pixels differing from the postprocessing with the plain "
+          f"scans {px_differ(got, plain)}; the plain run's launches {launched}")
+    require(not launched and torch.equal(got, plain),
+            f"training CLI: {label}'s instance maps differ from the plain scans'")
+
+
+def einsum_attention(q, k, v):
+    """The encoder's einsum route (`models/vit.py`): fp32 logits and
+    softmax, the product in v's dtype."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1).to(v.dtype), v)
+
+
+class CliRecorder:
+    """Wraps the trainer's and the evaluator's entry points for the training
+    CLI phase: the launches, CUDA-event and wall ms of every training step,
+    the loader's wait per step, the launches of every validation epoch and
+    evaluation batch, the evaluator's wall time; `restore` puts them back."""
+
+    def __init__(self) -> None:
+        from cellvit_tpu_torch import _build
+        from cellvit_tpu_torch.inference.eval_pannuke import InferenceCellViT
+        from cellvit_tpu_torch.train.trainer import CellViTTrainer
+
+        self.launches = _build.LAUNCHES
+        self.steps, self.waits, self.val, self.eval_batches, self.evals = [], [], [], [], []
+        self.trainer = self.inference = None
+        self._saved = []
+        rec = self
+
+        def wrap(cls, name, fn):
+            original = getattr(cls, name)
+            self._saved.append((cls, name, original))
+            setattr(cls, name, lambda obj, *a, **kw: fn(original, obj, *a, **kw))
+
+        def train_step(original, trainer, batch, freeze_encoder):
+            rec.trainer = trainer
+            torch.cuda.synchronize()
+            before = dict(rec.launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = original(trainer, batch, freeze_encoder)
+            end.record()
+            torch.cuda.synchronize()
+            rec.steps.append(dict(frozen=freeze_encoder, ms=start.elapsed_time(end),
+                                  wall=(time.perf_counter() - t0) * 1e3, launches=rec.diff(before)))
+            return out
+
+        def train_epoch(original, trainer, *a, **kw):
+            out = original(trainer, *a, **kw)
+            rec.waits.append(list(trainer.loader_wait_s))
+            return out
+
+        def validation_epoch(original, trainer, loader, *a, **kw):
+            torch.cuda.synchronize()
+            before = dict(rec.launches)
+            out = original(trainer, loader, *a, **kw)
+            torch.cuda.synchronize()
+            rec.val.append(dict(batches=len(loader), launches=rec.diff(before)))
+            return out
+
+        def device_batch(original, inference, *a, **kw):
+            torch.cuda.synchronize()
+            before = dict(rec.launches)
+            out = original(inference, *a, **kw)
+            torch.cuda.synchronize()
+            rec.eval_batches.append(rec.diff(before))
+            return out
+
+        def run_patch_inference(original, inference, *a, **kw):
+            rec.inference = inference
+            t0 = time.perf_counter()
+            out = original(inference, *a, **kw)
+            rec.evals.append(time.perf_counter() - t0)
+            return out
+
+        wrap(CellViTTrainer, "train_step", train_step)
+        wrap(CellViTTrainer, "train_epoch", train_epoch)
+        wrap(CellViTTrainer, "validation_epoch", validation_epoch)
+        wrap(InferenceCellViT, "_device_batch", device_batch)
+        wrap(InferenceCellViT, "run_patch_inference", run_patch_inference)
+
+    def diff(self, before: dict) -> dict:
+        return {k: v - before.get(k, 0) for k, v in self.launches.items() if v != before.get(k, 0)}
+
+    def restore(self) -> None:
+        for cls, name, original in self._saved:
+            setattr(cls, name, original)
+
+
+def train_cli_phase(card: str) -> dict:
+    """Main path 5: the training CLI end to end, as a user runs it:
+    `cli.run_cellvit.main(["--config", ...])` on the card with
+    `configs/examples/train_cellvit.yaml` at its own settings (full-width
+    CellViT-256, batch 16, AdamW, exponential schedule, cell+tissue
+    sampling, every augmentation at its p, mixed precision) but for the
+    paths, `epochs: 2`, `unfreeze_epoch: 1` and no pretrained encoder, on a
+    synthetic PanNuke-layout dataset (folds of 48 / 16 / 16 256² patches);
+    then `--sweep` on `train_cellvit_sweep.yaml` cut to a 2-run grid at
+    `epochs: 1`, `unfreeze_epoch: 0`. First B1 and B8 are held against their
+    plain versions at the training batch's attention shape (16, 257, 6, 64).
+    Returns the two runs' launch counts."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from cellvit_tpu_torch import _build, synthetic
+    from cellvit_tpu_torch.cli import run_cellvit
+    from cellvit_tpu_torch.data.png import decode_png
+    from cellvit_tpu_torch.ops import attention
+    from cellvit_tpu_torch.utils import yaml_lite
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, n, h, hd = 16, TRAIN_CLI_TILE ** 2 // 256 + 1, 6, 64
+    q, k, v = (torch.randn((b, n, 3, h, hd), generator=gen, device=dev).to(torch.bfloat16)).unbind(2)
+    o, lse = attention.flash_attention(q, k, v, return_lse=True)
+    errs = attention.flash_errors(o, lse, *attention.flash_attention_plain(q, k, v))
+    b1_ms, ein_ms = time_ms(lambda: attention.flash_attention(q, k, v), 50), \
+        time_ms(lambda: einsum_attention(q, k, v), 50)
+    print(f"training CLI: B1 at ({b}, {n}, {h}, {hd}) bf16 (a 256² batch's 257 tokens, the ragged "
+          f"tail of 1 past 256): errors {errs} (bounds {attention.FLASH_BOUNDS}); B1 {b1_ms:.4f} ms, "
+          f"the einsum route {ein_ms:.4f} ms ({ein_ms / b1_ms:.2f}×) on {card}")
+    require(all(e <= attention.FLASH_BOUNDS[key] for key, e in errs.items()),
+            "B1 disagrees at (16, 257, 6, 64)")
+    flash_bwd_timing(f"({b}, {n}, {h}, {hd})", flash_bwd_phase(b, n, h, hd, hd, hd ** -0.5, gen, dev),
+                     hd ** -0.5)
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="cellvit_train_"))
+    rec = CliRecorder()
+    try:
+        # the repo's PanNuke configs: the 19 tissue names, the 5 nucleus types, the tissue counts
+        t0 = time.perf_counter()
+        configs = Path(__file__).resolve().parent / "configs"
+        synthetic.write_pannuke_folds(
+            root / "data", TRAIN_CLI_FOLDS,
+            yaml_lite.load((configs / "datasets/PanNuke/dataset_config.yaml").read_text()),
+            yaml_lite.load((configs / "datasets/PanNuke/weight_config.yaml").read_text()),
+            tile=TRAIN_CLI_TILE)
+        print(f"training CLI: PanNuke-layout folds {TRAIN_CLI_FOLDS} of {TRAIN_CLI_TILE}² written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        examples = configs / "examples"
+        config = yaml_lite.load((examples / "train_cellvit.yaml").read_text())
+        config["logging"]["log_dir"] = str(root / "runs")
+        config["data"]["dataset_path"] = str(root / "data")
+        config["model"]["pretrained_encoder"] = None
+        config["training"].update(epochs=2, unfreeze_epoch=1)
+        (root / "train.yaml").write_text(yaml_lite.dump(config))
+        attn_drop = config["training"]["attn_drop_rate"]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run_dir = run_cellvit.main(["--config", str(root / "train.yaml")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"training CLI run: {wall:.1f} s wall (2 epochs, validation, test-fold evaluation); "
+              f"launches {launches}; peak memory allocated {peak:.2f} GiB")
+
+        # the run directory
+        for name in ("config.yaml", "metrics.jsonl", "checkpoints/latest_checkpoint.pth",
+                     "checkpoints/model_best.pth", "inference_results.json"):
+            require((run_dir / name).is_file(), f"training CLI: {name} missing")
+        lines = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        kinds = [(line["step"], sorted({key.split("/")[0] for key in line if "/" in key})) for line in lines]
+        require(kinds == [(0, ["Train"]), (0, ["Validation"]), (1, ["Train"]), (1, ["Validation"])],
+                f"training CLI: metrics.jsonl lines {kinds}")
+        for line in lines:
+            loss = line.get("Train/Total_Loss", line.get("Validation/Total_Loss"))
+            require(np.isfinite(loss), f"training CLI: a non-finite loss in {line}")
+            print(f"  epoch {line['step']} " + ", ".join(f"{key} {val:.5f}" for key, val in line.items()
+                                                         if "Loss" in key or key.endswith(("dice", "bPQ"))))
+        results = json.loads((run_dir / "inference_results.json").read_text())["dataset"]
+        print(f"  inference_results.json: " + ", ".join(f"{key} {val:.5f}" for key, val in results.items()))
+        for key in ("bPQ", "bDQ", "bSQ", "mPQ", "f1_detection"):
+            require(np.isfinite(results[key]), f"training CLI: {key} is {results[key]}")
+
+        # launches: each training step, each validation epoch, each evaluation batch
+        per_step = {} if attn_drop > 0 else {"flash_attention": 12}
+        post = {"connected_components": 2, "flood": 1, "propagate_min": 1}
+        per_val_batch = {"flash_attention": 12, **post}
+        for i, st in enumerate(rec.steps):
+            print(f"  step {i} ({'frozen' if st['frozen'] else 'unfrozen'} encoder): {st['ms']:.2f} ms "
+                  f"device events, {st['wall']:.2f} ms wall; launches {st['launches']}")
+            require(st["launches"] == per_step, f"training CLI step {i}: launches {st['launches']}")
+        steps_per_epoch = TRAIN_CLI_FOLDS[0] // config["training"]["batch_size"]
+        require(len(rec.steps) == 2 * steps_per_epoch, f"training CLI: {len(rec.steps)} steps")
+        print(f"  training steps route attention by the config's attn_drop_rate {attn_drop}: "
+              f"{'the einsum route (the flash kernels never form the probabilities to drop from)' if attn_drop > 0 else 'B1 and B8'}")
+        for val in rec.val:
+            want = {key: c * val["batches"] for key, c in per_val_batch.items()}
+            print(f"  validation epoch ({val['batches']} batch): launches {val['launches']} (expected {want})")
+            require(val["launches"] == want, "training CLI: validation launches")
+        for i, got in enumerate(rec.eval_batches):
+            require(got == per_val_batch, f"training CLI: evaluation batch {i} launches {got}")
+        print(f"  evaluation: {len(rec.eval_batches)} batch(es), launches a batch {rec.eval_batches[0]}")
+
+        frozen = [st for st in rec.steps if st["frozen"]]
+        unfrozen = [st for st in rec.steps if not st["frozen"]]
+        med = lambda xs: float(np.median(xs))
+        bs = config["training"]["batch_size"]
+        print(f"  training step on {card}: frozen median {med([s['ms'] for s in frozen]):.2f} ms events / "
+              f"{med([s['wall'] for s in frozen]):.2f} ms wall, unfrozen median "
+              f"{med([s['ms'] for s in unfrozen]):.2f} / {med([s['wall'] for s in unfrozen]):.2f}; "
+              f"images/s over the unfrozen steps' wall {bs * len(unfrozen) / (sum(s['wall'] for s in unfrozen) / 1e3):.1f}")
+        waits = [w * 1e3 for epoch in rec.waits for w in epoch]
+        print(f"  loader wait a step (host decode, augmentations, targets; 16 threads): ms "
+              f"{[round(w, 1) for w in waits]}, median {med(waits):.1f} beside the step's median wall "
+              f"{med([s['wall'] for s in rec.steps]):.1f}")
+        n_test = TRAIN_CLI_FOLDS[2]
+        print(f"  evaluation: {n_test} test patches in {rec.evals[0]:.3f} s, "
+              f"{n_test / rec.evals[0]:.2f} patches/s (loader, forward, postprocessing, host metrics)")
+
+        # the evaluation's first batch: kernels against the plain postprocessing
+        against_plain_scans("evaluation", rec.inference.first_batch)
+
+        # a validation example panel (off the training path, as in the JAX package)
+        trainer = rec.trainer
+        panel = trainer._plot_examples(*first_val_batch(trainer), epoch=99)
+        img = decode_png(panel.read_bytes())
+        print(f"  example panel {panel.name}: {img.shape} PNG decodes")
+        require(img.ndim == 3 and img.shape[2] == 3, "training CLI: the example panel")
+        host_loader_rates(config, root / "data", med([s["wall"] for s in rec.steps]))
+        profile_train_step(trainer)
+        probe_evaluation(run_dir, card)
+        del trainer
+        rec.trainer = rec.inference = None
+        torch.cuda.empty_cache()
+
+        # --sweep: a 2-run grid at one epoch, the encoder unfrozen
+        sweep = yaml_lite.load((examples / "train_cellvit_sweep.yaml").read_text())
+        sweep["logging"]["log_dir"] = str(root / "sweep")
+        sweep["data"]["dataset_path"] = str(root / "data")
+        sweep["model"]["pretrained_encoder"] = None
+        sweep["training"].update(epochs=1, unfreeze_epoch=0)
+        sweep["parameters"] = {"training": {"optimizer_hyperparameter": {"lr": {"values": [0.0003, 0.0001]}}}}
+        (root / "sweep.yaml").write_text(yaml_lite.dump(sweep))
+        rec.steps, rec.val = [], []
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        best = run_cellvit.main(["--config", str(root / "sweep.yaml"), "--sweep"])
+        torch.cuda.synchronize()
+        sweep_launches = dict(_build.LAUNCHES)
+        out = json.loads((root / "sweep" / "sweep_results.json").read_text())
+        print(f"training CLI --sweep: {time.perf_counter() - t0:.1f} s; {len(out['runs'])} results, best "
+              f"run {best.get('run')} bPQ {best.get('bPQ')}; launches {sweep_launches}")
+        require(len(out["runs"]) == 2 and all(r.get("bPQ") is not None and "error" not in r
+                                              for r in out["runs"]), f"training CLI --sweep: {out}")
+        per_step = {"flash_attention": 12, "flash_attention_bwd": 12}
+        for i, st in enumerate(rec.steps):
+            require(st["launches"] == per_step, f"sweep step {i}: launches {st['launches']}")
+        print(f"  sweep steps (unfrozen, no attention dropout): launches a step {rec.steps[0]['launches']}, "
+              f"{med([s['ms'] for s in rec.steps[1:]]):.2f} ms events, "
+              f"{med([s['wall'] for s in rec.steps[1:]]):.2f} ms wall (median past each run's first)")
+        for val in rec.val:
+            require(val["launches"] == {key: c * val["batches"] for key, c in per_val_batch.items()},
+                    f"sweep validation launches {val['launches']}")
+        return {key: launches.get(key, 0) + sweep_launches.get(key, 0)
+                for key in set(launches) | set(sweep_launches)}
+    finally:
+        rec.restore()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def host_loader_rates(config: dict, data_dir, step_wall_ms: float) -> None:
+    """How fast the host makes training batches: one thread's ms a sample
+    (PNG decode, every augmentation at its p, targets) over the training
+    fold, and the experiment's loader (16 threads, a batch each) over 16
+    batches drawn from it, beside what the steps consume. The loader splits
+    work by batch: an epoch's first batch waits for one thread to build all
+    of it."""
+    from cellvit_tpu_torch.data.datasets import PanNukeDataset
+    from cellvit_tpu_torch.data.loader import DataLoader, WeightedRandomSampler
+    from cellvit_tpu_torch.data.transforms import build_transforms
+
+    train_tf, _ = build_transforms(config["transformations"], TRAIN_CLI_TILE, seed=19)
+    ds = PanNukeDataset(data_dir, 0, transforms=train_tf, native_png=True)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    one = (time.perf_counter() - t0) * 1e3 / len(ds)
+    bs = config["training"]["batch_size"]
+    loader = DataLoader(ds, batch_size=bs, sampler=WeightedRandomSampler(np.ones(len(ds)), 16 * bs, 19),
+                        num_workers=16, drop_last=True)
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in loader)
+    rate = n / (time.perf_counter() - t0)
+    need = bs / (step_wall_ms / 1e3)
+    print(f"  host loader: one thread {one:.1f} ms a sample; 16 threads {rate:.1f} samples/s over "
+          f"{n} samples; the steps consume {need:.1f} samples/s (batch {bs} a {step_wall_ms:.1f} ms "
+          f"step): the loader {'sets' if rate < need else 'keeps up with'} the pace")
+
+
+def fold_batch(trainer, fold: int, n: int) -> dict:
+    """The first `n` patches of a fold of the phase's dataset, normalized,
+    as a `prepare_batch` dict."""
+    from cellvit_tpu_torch.data.datasets import PanNukeDataset
+    from cellvit_tpu_torch.data.loader import default_collate
+    from cellvit_tpu_torch.data.transforms import build_transforms
+    from cellvit_tpu_torch.train.trainer import prepare_batch
+
+    _, val_tf = build_transforms({}, TRAIN_CLI_TILE)
+    ds = PanNukeDataset(trainer.run_config["data.dataset_path"], fold, transforms=val_tf)
+    return prepare_batch(default_collate([ds[i] for i in range(n)]), trainer.tissue_types)
+
+
+def profile_train_step(trainer) -> None:
+    """One unfrozen training step of the CLI run's trainer under
+    `torch.profiler`: wall, device time summed over kernels and copies, the
+    busy share, and the ops that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer.to_device(fold_batch(trainer, 0, trainer.run_config["training.batch_size"]))
+    trainer._host(trainer.train_step(batch, False))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._host(trainer.train_step(batch, False))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    top = sorted((e for e in events if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    print(f"  profile of one unfrozen step (torch.profiler): wall {wall:.2f} ms, device {device:.2f} ms "
+          f"(busy share {device / wall:.4f}); top device ms: "
+          + "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ({e.count})" for e in top))
+
+
+def probe_evaluation(run_dir, card: str) -> None:
+    """The evaluator on the run's checkpoint with the probe weights
+    (`synthetic.set_probe_weights`: the maps follow the dark discs), so
+    that its instance maps and host metrics have nuclei: its first batch
+    against the plain postprocessing, pixel for pixel, and its patches/s."""
+    from cellvit_tpu_torch.inference.eval_pannuke import InferenceCellViT
+    from cellvit_tpu_torch.models.checkpoint_io import load_checkpoint
+    from cellvit_tpu_torch.synthetic import set_probe_weights
+
+    ckpt_dir = run_dir / "checkpoints"
+    ckpt = torch.load(str(ckpt_dir / "latest_checkpoint.pth"), weights_only=True)
+    model, _, _ = load_checkpoint(ckpt_dir / "latest_checkpoint.pth")
+    with torch.no_grad():
+        set_probe_weights(model)
+    ckpt["model_state_dict"] = model.state_dict()
+    torch.save(ckpt, str(ckpt_dir / "probe.pth"))
+    infer = InferenceCellViT(run_dir, "probe", device="cuda")
+    t0 = time.perf_counter()
+    results = infer.run_patch_inference()["dataset"]
+    wall = time.perf_counter() - t0
+    print(f"  evaluation with the probe weights: {TRAIN_CLI_FOLDS[2] / wall:.2f} patches/s on {card}; "
+          f"bPQ {results['bPQ']:.4f}, f1_detection {results['f1_detection']:.4f}")
+    require(int(infer.first_batch["inst"].max()) > 0, "training CLI: the probe evaluation found no nuclei")
+    against_plain_scans("probe evaluation", infer.first_batch)
+
+
+def first_val_batch(trainer):
+    """(host batch, device predictions, instance map) of 4 validation
+    patches, for `_plot_examples`."""
+    batch = fold_batch(trainer, 1, 4)
+    inst_gt = batch.pop("instance_map")
+    _, preds = trainer.eval_step(trainer.to_device(batch))
+    return batch, preds, inst_gt
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1654,6 +2089,12 @@ def main() -> int:
     # ---- main path 3: CellViT-256 training on 4 × 1024² tiles
     for name, n in drive_training(card).items():
         launches[name] += n
+
+    # ---- main path 5: the training CLI end to end, config to evaluated run
+    t0 = time.perf_counter()
+    for name, n in train_cli_phase(card).items():
+        launches[name] += n
+    print(f"training CLI phase: {time.perf_counter() - t0:.1f} s")
 
     for name, n in phase_launches.items():
         launches[name] += n

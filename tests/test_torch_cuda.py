@@ -754,3 +754,39 @@ def test_inference_on_an_explicit_cuda_index(cuda):
         assert inst.max() > 0 and np.isfinite(tokens).all()
         maps.append(inst)
     assert all((m == maps[0]).all() for m in maps)
+
+
+def test_training_cli_on_the_card(cuda, tmp_path):
+    """`cli.run_cellvit.main` on the card with a CellViT of 64-wide heads
+    at 256² (257 tokens: B1 in bf16), mixed precision, no attention dropout:
+    one frozen and one unfrozen step, a validation batch each epoch and one
+    test batch. B1 4 a forward, B8 4 in the unfrozen step, B2 2, B3 1 and B4
+    1 a postprocessed batch; finite metrics in `inference_results.json`."""
+    import json
+    from pathlib import Path
+
+    from cellvit_tpu_torch.cli import run_cellvit
+    from cellvit_tpu_torch.synthetic import write_pannuke_folds
+    from cellvit_tpu_torch.utils import yaml_lite
+
+    configs = Path(__file__).resolve().parents[1] / "configs"
+    dataset_config = yaml_lite.load((configs / "datasets/PanNuke/dataset_config.yaml").read_text())
+    weight_config = yaml_lite.load((configs / "datasets/PanNuke/weight_config.yaml").read_text())
+    write_pannuke_folds(tmp_path / "data", {0: 2, 1: 2, 2: 2}, dataset_config, weight_config)
+    config = yaml_lite.load((configs / "examples/train_cellvit.yaml").read_text())
+    config["logging"]["log_dir"] = str(tmp_path / "runs")
+    config["data"]["dataset_path"] = str(tmp_path / "data")
+    config["model"] = {"backbone": "default", "embed_dim": 128, "depth": 4, "num_heads": 2,
+                       "extract_layers": [1, 2, 3, 4]}
+    config["training"].update(batch_size=2, epochs=2, unfreeze_epoch=1, attn_drop_rate=0.0)
+    path = tmp_path / "train.yaml"
+    path.write_text(yaml_lite.dump(config))
+    _build.reset_launches()
+    run_dir = run_cellvit.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    post = {"connected_components": 2, "flood": 1, "propagate_min": 1}
+    # 2 steps + 2 validation batches + 1 test batch
+    want = {"flash_attention": 4 * 5, "flash_attention_bwd": 4, **{k: 3 * v for k, v in post.items()}}
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+    results = json.loads((run_dir / "inference_results.json").read_text())["dataset"]
+    assert all(np.isfinite(results[k]) for k in ("bPQ", "bDQ", "bSQ", "f1_detection")), results

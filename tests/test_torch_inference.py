@@ -221,12 +221,18 @@ def test_package_imports_no_jax():
 
 def test_package_sources_name_no_jax():
     """No module of the port, nor `chip_smoke.py`, imports JAX, the JAX
-    package, or cv2, PIL or yaml (the GPU machine has none of them)."""
+    package, or cv2, PIL or yaml (the GPU machine has none of them), nor
+    matplotlib or wandb at module level (the logger tries wandb inside a
+    call, only when asked, and warns without it)."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|cellvit_tpu|cv2|PIL|yaml)(\.|\s|$)", re.MULTILINE)
+    top_level = re.compile(r"^(import|from)\s+(matplotlib|wandb)(\.|\s|$)", re.MULTILINE)
     sources = [*PACKAGE.rglob("*.py"), PACKAGE.parent / "chip_smoke.py"]
-    offenders = [p.name for p in sources if pattern.search(p.read_text())]
+    offenders = [p.name for p in sources
+                 if pattern.search(p.read_text()) or top_level.search(p.read_text())]
     assert offenders == []
+    assert top_level.search("import matplotlib.pyplot as plt") and top_level.search("import wandb")
+    assert not top_level.search("    import wandb")
     assert pattern.search("from cellvit_tpu.ops import cc")
     assert not pattern.search("from cellvit_tpu_torch.ops import cc")
     for name in ("import cv2", "from PIL import Image", "    import yaml"):
